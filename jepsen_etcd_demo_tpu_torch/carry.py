@@ -1,17 +1,28 @@
-"""Carry an encoded history across from the JAX package's arrays.
+"""Carry state across from the JAX package's arrays.
 
 This system has no weights; what the two packages share is the encoded
-history. ``encoded_from_numpy`` takes the JAX package's encoding as numpy
-(the dict its ``EncodedHistory.to_arrays`` returns: ``events`` and the
-scalar fields) and builds the port's ``EncodedHistory``, so one encoding
-can be fed to both packages.
+history and, mid-search, the resumable sweep's carry.
+
+``encoded_from_numpy`` takes the JAX package's encoding as numpy (the
+dict its ``EncodedHistory.to_arrays`` returns: ``events`` and the scalar
+fields) and builds the port's ``EncodedHistory``, so one encoding can be
+fed to both packages.
+
+``table_from_numpy`` takes the outputs of one of the JAX package's
+resumable Pallas windows (the table u32[1, Sp, W], rows padded to a
+multiple of 8, and the next metadata i32[1, 5] or i32[1, 8]) and builds
+the port's carry, so a long sweep started in JAX finishes in the port
+(``ops/wgl3_kernels.run_chain(..., carry=...)``). ``table_to_numpy``
+pads a port carry back to the JAX layout.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ops.encode import EVENT_WIDTH, EncodedHistory
+from .ops.wgl3 import DenseConfig
 
 
 def encoded_from_numpy(fields: dict[str, np.ndarray]) -> EncodedHistory:
@@ -23,3 +34,34 @@ def encoded_from_numpy(fields: dict[str, np.ndarray]) -> EncodedHistory:
                           k_slots=int(fields["k_slots"]),
                           max_pending=int(fields["max_pending"]),
                           max_value=int(fields.get("max_value", 0)))
+
+
+def _padded_rows(cfg: DenseConfig) -> int:
+    return max(8, (cfg.n_states + 7) // 8 * 8)
+
+
+def table_from_numpy(table, meta, cfg: DenseConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX window outputs -> the port's carry on the CPU: (T int32[1,S,W]
+    holding the same uint32 bit patterns, meta int32[1,5] or int32[1,8]).
+    Raises when the table's padding rows hold configs or a shape does not
+    match the geometry."""
+    table = np.asarray(table).astype(np.uint32)
+    meta = np.asarray(meta).astype(np.int32).reshape(1, -1)
+    S, W = cfg.n_states, cfg.n_words
+    if table.shape != (1, _padded_rows(cfg), W) or meta.shape[1] not in (5, 8):
+        raise ValueError(f"JAX carry shapes {table.shape}, {meta.shape} do "
+                         f"not match K={cfg.k_slots}, S={S}")
+    if table[:, S:].any():
+        raise ValueError("the JAX table holds configs in its padding rows")
+    T = torch.from_numpy(np.ascontiguousarray(table[:, :S]).view(np.int32))
+    return T.clone(), torch.from_numpy(meta.copy())
+
+
+def table_to_numpy(T: torch.Tensor, meta: torch.Tensor, cfg: DenseConfig
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The port's carry -> the JAX window layout: (u32[1, Sp, W] with zero
+    padding rows, i32[1, 5 or 8])."""
+    table = np.zeros((1, _padded_rows(cfg), cfg.n_words), np.uint32)
+    table[:, :cfg.n_states] = T.cpu().numpy().view(np.uint32)
+    return table, meta.cpu().numpy().astype(np.int32)

@@ -3,7 +3,11 @@
 A keyed history carries ``(key, value)`` tuples; it is split per key and
 each key's history is checked on its own. With a Linearizable sub-checker
 and more than one key, every key's history is encoded and all of them are
-checked in ONE launch of the dense sweep: the key axis is the batch axis.
+checked together: in ONE launch of the dense sweep (the key axis is the
+batch axis), or, when a key is longer than one scan, one key after another
+through the long sweep under the keys' shared geometry. A batched result
+settles a key only when it is valid: an invalid or unknown key is checked
+again on its own, which builds its counterexample witness.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ class IndependentChecker(Checker):
             batched = _batched_linearizable(self.sub_checker, keyed)
         results: dict[Any, dict] = {}
         for k in sorted(keyed, key=str):
-            if k in batched:
+            if batched.get(k, {}).get("valid") is True:
                 results[k] = batched[k]
             else:
                 results[k] = self.sub_checker.check(
@@ -68,8 +72,8 @@ class IndependentChecker(Checker):
 
 def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]]
                           ) -> dict[Any, dict]:
-    """All keys in one dense launch when one table geometry serves them;
-    {} otherwise (each key then takes the single-history path)."""
+    """All keys checked together when one table geometry serves them; {}
+    otherwise (each key then takes the single-history path)."""
     from ..ops import wgl3, wgl3_kernels
 
     encs = {k: lin.encode(h) for k, h in keyed.items()}
@@ -79,12 +83,13 @@ def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]]
         return {}
     keys = list(encs)
     batch, _kernel = wgl3_kernels.check_batch_encoded_auto(
-        [encs[k] for k in keys], lin.model, lin.device)
+        [encs[k] for k in keys], lin.model, lin.device,
+        time_budget_s=lin.time_budget_s)
     return {
         k: {"valid": one["valid"], "backend": lin.backend + "-batched",
             "op_count": one["op_count"], "dead_step": one["dead_step"],
             "max_frontier": one["max_frontier"],
             "configs_explored": one["configs_explored"],
-            "overflow": False, "f_cap": one["table_cells"]}
+            "overflow": one["overflow"], "f_cap": one["table_cells"]}
         for k, one in zip(keys, batch)
     }

@@ -37,6 +37,19 @@ class Model(abc.ABC):
 
         return register_fields(f_name, invoke_value, ok_value, status)
 
+    def describe_op(self, f: int, a1: int, a2: int, rv: int) -> str:
+        """Human-readable rendering of an encoded op (witness artifacts):
+        the register language by default."""
+        from ..ops.encode import F_CAS, F_READ, F_WRITE, NIL
+
+        if f == F_READ:
+            return f"read -> {'nil' if rv == NIL else rv}"
+        if f == F_WRITE:
+            return f"write({a1})"
+        if f == F_CAS:
+            return f"cas({a1} -> {a2})"
+        return f"op({f}, {a1}, {a2}, {rv})"
+
     @abc.abstractmethod
     def init_state(self) -> int:
         ...

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc into a shared library with a
 plain C interface, ``build/lib<name>-<hash>.so`` inside the package (a
-directory git ignores). The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads the library already
-built. Nothing here includes PyTorch's headers, so a build takes seconds.
+directory git ignores). The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the library already built. Nothing here includes
+PyTorch's headers, so a build takes seconds; ``load_all`` starts the nvcc
+of every source that needs one before it waits for any.
 """
 
 from __future__ import annotations
@@ -47,34 +49,46 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, compiled first if it is not
     built yet. Raises with nvcc's output when the build fails."""
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """load() every name; the sources that need a build compile side by
+    side, one nvcc process each."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                _compile(name, path)
-            lib = ctypes.CDLL(str(path))
-            _LIBS[name] = lib
-        return lib
+        todo = {n: library_path(n) for n in names
+                if n not in _LIBS and not library_path(n).exists()}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {n: subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(_tmp(path)),
+             str(CSRC_DIR / f"{n}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for n, path in todo.items()}
+        failed = []
+        for n, proc in procs.items():
+            build_log[n] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {n}.cu (exit "
+                              f"{proc.returncode}):\n{build_log[n]}")
+            else:
+                os.replace(_tmp(todo[n]), todo[n])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for n in names:
+            if n not in _LIBS:
+                _LIBS[n] = ctypes.CDLL(str(library_path(n)))
+        return {n: _LIBS[n] for n in names}
 
 
-def _compile(name: str, path: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    build_log[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, path)
+def _tmp(path: Path) -> Path:
+    return path.with_name(f"{path.name}.{os.getpid()}.tmp")

@@ -181,6 +181,13 @@ def _timeline_points(invocations: Sequence[Invocation]
     return points
 
 
+def event_sources(invocations: Sequence[Invocation]) -> list[Invocation]:
+    """The invocation behind each encoded event row, in event order: row i
+    of encode_events(invocations).events describes event_sources[i]. The
+    witness maps event indices back to history operations with it."""
+    return [inv for _, _, inv in _timeline_points(invocations)]
+
+
 def encode_events(invocations: Sequence[Invocation], k_slots: int = 32
                   ) -> EncodedHistory:
     """Build the (kind, slot, f, a1, a2, rv) event stream, assigning each

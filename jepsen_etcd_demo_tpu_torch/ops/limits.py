@@ -1,4 +1,4 @@
-"""The few kernel limits the dense check reads, with their defaults.
+"""The kernel limits the dense check reads, with their defaults.
 
 A frozen dataclass and nothing more: no environment overrides and no
 tuned profiles. ``set_limits`` swaps the active instance (tests use it to
@@ -14,13 +14,29 @@ from dataclasses import dataclass
 class KernelLimits:
     # Largest dense table (S * 2^K cells) the dense check builds per
     # history. Every admitted table is at most 2^20 bits = 128 KiB, which
-    # is what lets the CUDA kernel hold it in one block's shared memory.
+    # is what lets the CUDA kernels hold it in one block's shared memory.
     dense_cell_budget: int = 1 << 20
-    # Longest return-step scan one launch takes; longer histories need
-    # the resumable sweep, which this port does not have yet.
+    # Longest return-step scan one launch of the batch sweep takes;
+    # longer histories take the resumable sweep, one window at a time.
     long_scan_max: int = 32768
     # Floor of the {2^k, 1.5*2^k} step-count buckets.
     step_bucket_floor: int = 32
+    # Return steps per launch of the resumable sweeps (rounded down to a
+    # step bucket, see wgl3_kernels.long_window); the table and metadata
+    # carry from one window's launch to the next.
+    long_window_steps: int = 16384
+    # Sweep mode of the long sweeps: 0 = auto (the sparse work-list kernel
+    # where the density policy selects it), 1 = dense only, 2 = prefer
+    # sparse (every closure round sweeps only live blocks).
+    sparse_mode: int = 0
+    # Words a table row (2^K / 32) must span before auto mode selects the
+    # sparse sweep: the JAX package's default, 2048 tiles of 8 words. No
+    # row the dense budget admits is that wide (K <= 18: 8192 words), so
+    # auto mode runs dense unless this is lowered.
+    sparse_min_words: int = 16384
+    # Live-block share, in percent, above which a closure round of the
+    # sparse sweep runs dense instead (auto mode).
+    sparse_density_threshold_pct: int = 25
 
 
 _ACTIVE = KernelLimits()

@@ -22,9 +22,18 @@ the high K-5 bits index one of W = 2^(K-5) words. Each return step
     not linearizable at this step.
 
 This module holds the host half (geometry, bucketing, batching, result
-assembly) and the plain PyTorch version of the sweep, `check_batch_plain`.
-The CUDA kernel that runs the same sweep on the card, and the route that
-sends batches to it, are in ops/wgl3_kernels.py.
+assembly) and the plain PyTorch versions of the sweeps: the dense sweep
+(`sweep_plain`, resumable through `sweep_plain_carry`) and the sparse
+work-list sweep (`sweep_plain_sparse`). The CUDA kernels that run the same
+sweeps on the card, and the routes that send histories to them, are in
+ops/wgl3_kernels.py.
+
+A resumable sweep carries (table, meta) from one window of return steps
+to the next: the table int64[B, S, W] and meta int64[B, 5] =
+[dead, dead_step, max_frontier, configs_explored, offset], where offset
+is the global index of the window's first step (dead_step is global) and
+configs_explored wraps as a 32-bit accumulator. The sparse sweep's meta
+adds [live_sum, sparse_steps, real_steps] (int64[B, 8]).
 
 torch has no shifts on uint32 and no popcount, so the plain version keeps
 each 32-config word in an int64 and masks it to 32 bits after a left
@@ -59,6 +68,10 @@ class DenseConfig:
     @property
     def n_words(self) -> int:
         return 1 << (self.k_slots - 5)
+
+    @property
+    def rounds(self) -> int:
+        return self.max_rounds or self.k_slots
 
 
 def dense_config(model: Model, k_slots: int,
@@ -180,28 +193,44 @@ def _prune(T: torch.Tensor, t: torch.Tensor, allowed: torch.Tensor,
     return (g >> shift[:, None, None]) & allowed[:, None, :]
 
 
-def sweep_plain(trans: torch.Tensor, targets: torch.Tensor, cfg: DenseConfig,
-                row0: int) -> torch.Tensor:
-    """The plain sweep over a batch: trans bool[B, R, K, S, S'], targets
-    int[B, R] (-1 = pad, always a suffix) -> int32[B, 5] in PACKED_FIELDS
-    order. The closure runs until a sweep changes nothing; a monotone
-    operator has one least fixpoint above the step's starting table, so
-    the sweep order does not change the result."""
+def fresh_carry(cfg: DenseConfig, row0: int, batch: int, device,
+                width: int = 5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carry a search starts from: the initial config (state row
+    row0, empty mask) and meta [0, -1, 1, 0, 0] (+ zeros up to `width`)."""
+    T = torch.zeros((batch, cfg.n_states, cfg.n_words), dtype=torch.int64,
+                    device=device)
+    T[:, row0, 0] = 1
+    meta = torch.tensor([0, -1, 1, 0, 0] + [0] * (width - 5),
+                        dtype=torch.int64, device=device)
+    return T, meta.repeat(batch, 1)
+
+
+def sweep_plain_carry(trans: torch.Tensor, targets: torch.Tensor,
+                      cfg: DenseConfig, T: torch.Tensor, meta: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One window of the plain dense sweep over a batch: trans
+    bool[B, R, K, S, S'], targets int[B, R] (-1 = pad, always a suffix),
+    carry (T int64[B, S, W], meta int64[B, 5]) -> the next carry, with
+    meta's offset advanced by each history's real steps. The closure runs
+    until a sweep changes nothing; a monotone operator has one least
+    fixpoint above the step's starting table, so the sweep order does not
+    change the result."""
     B, R = targets.shape
     dev = targets.device
     W = cfg.n_words
-    T = torch.zeros((B, cfg.n_states, W), dtype=torch.int64, device=dev)
-    T[:, row0, 0] = 1
-    dead = torch.zeros(B, dtype=torch.bool, device=dev)
-    dead_step = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    maxf = torch.ones(B, dtype=torch.int64, device=dev)
-    cfgs = torch.zeros(B, dtype=torch.int64, device=dev)
+    dead = meta[:, 0] != 0
+    dead_step = meta[:, 1].clone()
+    maxf = meta[:, 2].clone()
+    cfgs = meta[:, 3].clone()
+    offset = meta[:, 4]
     w_idx = torch.arange(W, dtype=torch.int64, device=dev)
     tg = targets.to(torch.int64)
     for r in range(R):
         real = tg[:, r] >= 0
-        if not bool(real.any()):
-            break                       # only pads remain, in every row
+        # Pads are a suffix and death is sticky: once no history is both
+        # real and alive at this step, none is at a later one.
+        if not bool((real & ~dead).any()):
+            break
         t = tg[:, r].clamp(min=0)
         allowed = _allowed(t, w_idx)
         tr = trans[:, r]
@@ -215,15 +244,144 @@ def sweep_plain(trans: torch.Tensor, targets: torch.Tensor, cfg: DenseConfig,
         n = torch.where(real, popcount32(Tc).sum(dim=(1, 2)), 0)
         pruned = _prune(Tc, t, allowed, w_idx)
         died = real & ~dead & ~(pruned != 0).any(dim=(1, 2))
-        dead_step = torch.where(died, r, dead_step)
+        dead_step = torch.where(died, offset + r, dead_step)
         dead |= died
         T = torch.where(real[:, None, None], pruned, T)
         T = torch.where(dead[:, None, None], 0, T)
         maxf = torch.maximum(maxf, n)
         cfgs += n
-    return torch.stack([(~dead).to(torch.int64), torch.zeros_like(cfgs),
-                        dead_step, maxf, wrap_i32(cfgs)],
+    ln = (tg >= 0).sum(dim=1)
+    return T, torch.stack([dead.to(torch.int64), dead_step, maxf,
+                           wrap_i32(cfgs), offset + ln], dim=-1)
+
+
+def pack_meta(meta: torch.Tensor) -> torch.Tensor:
+    """Carry meta int[B, >=5] -> int32[B, 5] in PACKED_FIELDS order."""
+    return torch.stack([(meta[:, 0] == 0).to(torch.int64),
+                        torch.zeros_like(meta[:, 0]), meta[:, 1].long(),
+                        meta[:, 2].long(), meta[:, 3].long()],
                        dim=-1).to(torch.int32)
+
+
+def sweep_plain(trans: torch.Tensor, targets: torch.Tensor, cfg: DenseConfig,
+                row0: int) -> torch.Tensor:
+    """The plain sweep over a batch from a fresh start: trans
+    bool[B, R, K, S, S'], targets int[B, R] -> int32[B, 5] in
+    PACKED_FIELDS order."""
+    T, meta = fresh_carry(cfg, row0, targets.shape[0], targets.device)
+    return pack_meta(sweep_plain_carry(trans, targets, cfg, T, meta)[1])
+
+
+# -- the sparse work-list sweep ---------------------------------------------
+
+SPARSE_BLOCK_WORDS = 128      # words per work-list block
+_BLOCK_SLOTS = 12             # slots j < 12 stay inside a 128-word block
+
+
+def block_live(T: torch.Tensor, nb: int) -> torch.Tensor:
+    """bool[nb]: the 128-word blocks of table T [S, W] holding any config."""
+    return (T.reshape(T.shape[0], nb, -1) != 0).any(dim=2).any(dim=0)
+
+
+def _sparse_round(T: torch.Tensor, live: list, allowed: torch.Tensor,
+                  tr: torch.Tensor) -> torch.Tensor:
+    """One closure round over the live blocks only, T int64[S, W],
+    allowed int64[W], tr bool[K, S, S'].
+
+    Blocks are taken in ascending order, as a sequential sweep of the
+    work list would take them: each live block first receives what its
+    lower neighbours (its index with one bit cleared) fired into it, then
+    closes under slots j < 12 in slot order, and its result is what it
+    fires for slots j >= 12 into block bi | 1 << (j - 12). Every block's
+    sources have one bit fewer set, so blocks with the same bit count are
+    independent and go together, one level per bit count."""
+    S, W = T.shape
+    nb = W // SPARSE_BLOCK_WORDS
+    K = tr.shape[0]
+    Tb = T.reshape(S, nb, SPARSE_BLOCK_WORDS).clone()
+    ab = allowed.reshape(nb, SPARSE_BLOCK_WORDS)
+    bits = nb.bit_length() - 1
+    for level in range(bits + 1):
+        blocks = [bi for bi in range(nb) if bin(bi).count("1") == level]
+        for bi in blocks:
+            for bb in range(bits):
+                p = bi ^ (1 << bb)
+                if (bi >> bb) & 1 and live[p]:
+                    src = Tb[:, p] & ab[p]
+                    Tb[:, bi] |= _or_reduce(tr[None, _BLOCK_SLOTS + bb],
+                                            src[None])[0]
+        expand = [bi for bi in blocks if live[bi]]
+        if expand:
+            idx = torch.tensor(expand, device=T.device)
+            k_in = min(K, _BLOCK_SLOTS)
+            blk = _sweep(Tb[:, idx].transpose(0, 1), ab[idx],
+                         tr[None, :k_in].expand(len(expand), -1, -1, -1))
+            Tb[:, idx] = blk.transpose(0, 1)
+    return Tb.reshape(S, W)
+
+
+def sweep_plain_sparse(trans: torch.Tensor, targets: torch.Tensor,
+                       cfg: DenseConfig, T: torch.Tensor, meta: torch.Tensor,
+                       thresh_blocks: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One window of the plain sparse work-list sweep: the arguments of
+    sweep_plain_carry with meta int64[B, 8]. Each closure round probes
+    the 128-word blocks; with at most `thresh_blocks` live it sweeps only
+    those (_sparse_round), otherwise it runs a dense round. Rounds stop
+    when one changes nothing or after cfg.rounds rounds (K rounds always
+    reach the fixpoint: a firing sets one of K slot bits). Telemetry per
+    real step: live blocks of the converged table (live_sum), whether
+    every round was sparse (sparse_steps), and the step itself
+    (real_steps); a dead table's steps count as one sparse round each."""
+    B, R = targets.shape
+    dev = targets.device
+    W = cfg.n_words
+    nb = W // SPARSE_BLOCK_WORDS
+    w_idx = torch.arange(W, dtype=torch.int64, device=dev)
+    T_out, meta_out = T.clone(), meta.clone()
+    for b in range(B):
+        Tb = T[b]
+        (dead, dead_step, maxf, cfgs, off, live_sum, sp_steps,
+         real_steps) = (int(x) for x in meta[b].tolist())
+        steps = int((targets[b] >= 0).sum())
+        for r in range(steps):
+            if dead:
+                sp_steps += steps - r
+                real_steps += steps - r
+                break
+            t = int(targets[b, r])
+            allowed = _allowed(torch.tensor([t], device=dev), w_idx)[0]
+            tr = trans[b, r]
+            rounds = sp_rounds = 0
+            changed = True
+            while changed and rounds < cfg.rounds:
+                live = block_live(Tb, nb).tolist()
+                take = sum(live) <= thresh_blocks
+                if take:
+                    Tn = _sparse_round(Tb, live, allowed, tr)
+                else:
+                    Tn = _sweep(Tb[None], allowed[None], tr[None])[0]
+                changed = not torch.equal(Tn, Tb)
+                Tb = Tn
+                rounds += 1
+                sp_rounds += int(take)
+            n = int(popcount32(Tb).sum())
+            live_sum += int(block_live(Tb, nb).sum())
+            sp_steps += int(sp_rounds == rounds)
+            real_steps += 1
+            maxf = max(maxf, n)
+            cfgs += n
+            pruned = _prune(Tb[None], torch.tensor([t], device=dev),
+                            allowed[None], w_idx)[0]
+            if not bool((pruned != 0).any()):
+                dead, dead_step = 1, off + r
+                pruned = torch.zeros_like(pruned)
+            Tb = pruned
+        T_out[b] = Tb
+        meta_out[b] = torch.tensor(
+            [dead, dead_step, maxf, wrap_i32(torch.tensor(cfgs)).item(),
+             off + steps, live_sum, sp_steps, real_steps], device=dev)
+    return T_out, meta_out
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -231,6 +389,70 @@ def wrap_i32(x: torch.Tensor) -> torch.Tensor:
     Pallas kernels' i32 configs_explored accumulator wraps past 2^31."""
     x = x & 0xFFFFFFFF
     return torch.where(x >= 2**31, x - 2**32, x)
+
+
+def words64(T: torch.Tensor) -> torch.Tensor:
+    """Table words as uint32 bit patterns in int32 -> int64 values."""
+    return T.to(torch.int64) & _WORD
+
+
+def words32(T: torch.Tensor) -> torch.Tensor:
+    """int64 table words -> the same uint32 bit patterns in int32."""
+    return wrap_i32(T).to(torch.int32)
+
+
+def table_configs(table, cfg: DenseConfig) -> list[tuple[int, int]]:
+    """The configs a table [S, W] (uint32 words, numpy or torch) holds, as
+    (state value, linearized mask), by state row, word, then bit."""
+    table = np.asarray(table).astype(np.uint32)
+    configs = []
+    for srow in range(cfg.n_states):
+        for w in np.nonzero(table[srow])[0]:
+            bits = int(table[srow, w])
+            while bits:
+                b = bits & -bits
+                configs.append((srow - cfg.state_offset,
+                                int(w) * 32 + b.bit_length() - 1))
+                bits ^= b
+    return configs
+
+
+def recover_table3(rs: ReturnSteps, model: Model, cfg: DenseConfig,
+                   upto_step: int, device=None) -> list[tuple[int, int]]:
+    """The exact reachable config set after the first `upto_step` return
+    steps: the resumable dense sweep runs that far (on the card through
+    its kernel unless `device` is the CPU), and the carried table is read
+    back and decoded. The counterexample witness replays from here
+    (checkers/witness.py)."""
+    from . import wgl3_kernels
+
+    T, _meta = wgl3_kernels.run_chain(rs, model, cfg, device,
+                                      upto=upto_step)
+    return table_configs(T[0].cpu().numpy().view(np.uint32), cfg)
+
+
+def sweep_summary(live_sum: float, real_steps: int, sparse_steps: int,
+                  tiling: tuple[int, int]) -> dict:
+    """The sweep-mode and occupancy record of a long sweep's result: how
+    many steps ran all-sparse closures and the mean live-tile ratio of
+    the converged tables over `tiling` = (tile_words, n_tiles) (the JAX
+    package's record, field for field; the work list holds every block,
+    so no round is ever forced dense by an overflow)."""
+    tile, n_tiles = tiling
+    real = max(0, int(real_steps))
+    sparse = min(max(0, int(sparse_steps)), real)
+    dense = real - sparse
+    if real == 0 or sparse == 0:
+        mode = "dense"
+    elif dense == 0:
+        mode = "sparse"
+    else:
+        mode = "mixed"
+    ratio = (float(live_sum) / (real * n_tiles)) if real else 0.0
+    return {"mode": mode,
+            "live_tile_ratio": round(min(max(ratio, 0.0), 1.0), 4),
+            "steps_sparse": sparse, "steps_dense": dense,
+            "tiles": n_tiles, "tile_words": tile, "overflow_rounds": 0}
 
 
 def check_batch_plain(slot_tabs: torch.Tensor, slot_active: torch.Tensor,

@@ -1,33 +1,62 @@
-"""The dense sweep on the card: column-mask prep, the CUDA kernel's
-wrapper, and the route that sends a batch of encoded histories to it.
+"""The sweeps on the card: column-mask prep, the CUDA kernels' wrappers,
+and the routes that send encoded histories to them.
 
-`dense_sweep` is the wrapper of csrc/wgl3_sweep.cu, the one kernel that
-replaces the JAX package's two Pallas sweeps (per-history and grouped).
-For CUDA tensors it launches the kernel or raises; for CPU tensors it runs
-the kernel's plain PyTorch version (ops/wgl3.sweep_plain), the only reason
+Three wrappers, one per kernel entry:
+  * `dense_sweep`: csrc/wgl3_sweep.cu over a batch, whole scan per
+    history (replaces the JAX package's per-history and grouped Pallas
+    sweeps);
+  * `dense_sweep_resumable`: the same kernel over one window of a long
+    history, its table and metadata carried in and out (replaces the
+    resumable Pallas sweep);
+  * `sparse_sweep_resumable`: csrc/wgl3_sparse.cu, the window sweep whose
+    closure rounds visit only the live 128-word blocks (replaces the
+    sparse work-list Pallas sweep).
+For CUDA tensors each launches its kernel or raises; for CPU tensors it
+runs the kernel's plain PyTorch version (ops/wgl3.py), the only reason
 being that the tensors lie on the host.
+
+Carries on the device side: table int32[B, S, W] (uint32 bit patterns)
+and meta int32[B, 5] (dense) or int32[B, 8] (sparse), laid out as
+ops/wgl3.py describes. The kernels update a carry in place; callers use
+the carry a wrapper returns.
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
+from functools import partial
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.base import Model
 from . import wgl3
-from .encode import EncodedHistory
+from .encode import EncodedHistory, ReturnSteps
 from .limits import limits
+from .wgl3_sparse import MAX_BLOCKS, sparse_plan
 
-# Kernel launches since the last reset (the wrapper adds one per launch and
-# nowhere else); chip_smoke.py reads it to show the main path ran on the
-# kernel.
-launches = 0
+# Kernel launches since the last reset, per wrapper: each wrapper adds one
+# where it launches its kernel and nowhere else. chip_smoke.py reads them
+# to show which kernels the main path ran on.
+launches = {"dense_sweep": 0, "dense_sweep_resumable": 0,
+            "sparse_sweep_resumable": 0}
 
-_LIB = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # ln, tg, cm, out, Tio, meta, B, R, S, K, row0, stream
+    "wgl3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ln, tg, cm, Tio, meta, B, R, S, K, rounds, thresh, stream
+    "wgl3_sparse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def prepare_colmask(model: Model, cfg: wgl3.DenseConfig,
@@ -65,13 +94,34 @@ def colmask_transitions(cm: torch.Tensor) -> torch.Tensor:
 
 def sweep_reference(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
                     cfg: wgl3.DenseConfig, row0: int) -> torch.Tensor:
-    """The kernel's plain PyTorch version, on the inputs' device."""
+    """dense_sweep's plain PyTorch version, on the inputs' device."""
     del ln  # implied by the -1 pads of tg
     return wgl3.sweep_plain(colmask_transitions(cm), tg, cfg, row0)
 
 
+def resumable_reference(ln, tg, cm, cfg: wgl3.DenseConfig, T: torch.Tensor,
+                        meta: torch.Tensor):
+    """dense_sweep_resumable's plain version: a new carry, on the inputs'
+    device (the given carry is left as it was)."""
+    del ln
+    T64, m64 = wgl3.sweep_plain_carry(colmask_transitions(cm), tg, cfg,
+                                      wgl3.words64(T), meta.long())
+    return wgl3.words32(T64), m64.to(torch.int32)
+
+
+def sparse_reference(ln, tg, cm, cfg: wgl3.DenseConfig, T: torch.Tensor,
+                     meta: torch.Tensor, thresh_blocks: int):
+    """sparse_sweep_resumable's plain version: a new carry, on the inputs'
+    device (the given carry is left as it was)."""
+    del ln
+    T64, m64 = wgl3.sweep_plain_sparse(colmask_transitions(cm), tg, cfg,
+                                       wgl3.words64(T), meta.long(),
+                                       thresh_blocks)
+    return wgl3.words32(T64), m64.to(torch.int32)
+
+
 def check_geometry(cfg: wgl3.DenseConfig) -> None:
-    """Raise on a geometry the kernel does not take: K >= 5, S <= 32 and a
+    """Raise on a geometry the kernels do not take: K >= 5, S <= 32 and a
     table of at most 2^20 bits (128 KiB of shared memory)."""
     K, S = cfg.k_slots, cfg.n_states
     if K < 5 or S < 1 or S > 32 or S * (1 << K) > (1 << 20):
@@ -81,61 +131,335 @@ def check_geometry(cfg: wgl3.DenseConfig) -> None:
     wgl3._require_converging_cap(cfg)
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
         from . import build
 
-        lib = build.load("wgl3_sweep")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wgl3_sweep_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.wgl3_sweep_launch.restype = i
-        lib.wgl3_sweep_error_string.argtypes = [i]
-        lib.wgl3_sweep_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        lib = build.load(name)
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = _ARGTYPES[name]
+        launch.restype = _I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
-                cfg: wgl3.DenseConfig, row0: int) -> torch.Tensor:
-    """Run the dense sweep: ln int32[B], tg int32[B,R], cm int32[B,R,S,K]
-    -> int32[B, 5] in wgl3.PACKED_FIELDS order.
+def _launch(name: str, *args) -> None:
+    lib = _lib(name)
+    rc = getattr(lib, f"{name}_launch")(*args)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
 
-    On CUDA tensors this launches csrc/wgl3_sweep.cu on the current stream
-    (it raises on anything the kernel does not take); on CPU tensors it
-    runs the plain version."""
-    global launches
-    check_geometry(cfg)
+
+def _device_of(cfg: wgl3.DenseConfig, ln, tg, cm, carry=()) -> str:
+    """Check the operands' shapes and placement: 'cpu' when every tensor
+    lies on the host, 'cuda' when all lie on one card as contiguous int32
+    (what the kernels read); raises otherwise."""
     B, R = tg.shape
     if tuple(cm.shape) != (B, R, cfg.n_states, cfg.k_slots) \
             or tuple(ln.shape) != (B,):
         raise ValueError(
             f"shape mismatch: ln {tuple(ln.shape)}, tg {tuple(tg.shape)}, "
             f"cm {tuple(cm.shape)} for K={cfg.k_slots}, S={cfg.n_states}")
+    if carry:
+        T, meta = carry
+        if tuple(T.shape) != (B, cfg.n_states, cfg.n_words) \
+                or meta.dim() != 2 or meta.shape[0] != B:
+            raise ValueError(f"carry shape mismatch: T {tuple(T.shape)}, "
+                             f"meta {tuple(meta.shape)}")
+    xs = (ln, tg, cm, *carry)
+    devs = {x.device.type for x in xs}
+    if devs == {"cpu"}:
+        return "cpu"
+    if devs != {"cuda"} or len({x.device for x in xs}) != 1:
+        raise ValueError(f"operands must lie on one CUDA device or all on "
+                         f"the CPU; got {[x.device for x in xs]}")
+    for x in xs:
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("kernel operands must be contiguous int32 "
+                             "tensors")
+    return "cuda"
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
+                cfg: wgl3.DenseConfig, row0: int) -> torch.Tensor:
+    """Run the dense sweep from a fresh start: ln int32[B], tg int32[B,R],
+    cm int32[B,R,S,K] -> int32[B, 5] in wgl3.PACKED_FIELDS order.
+
+    On CUDA tensors this launches csrc/wgl3_sweep.cu on the current stream
+    (it raises on anything the kernel does not take); on CPU tensors it
+    runs the plain version."""
+    check_geometry(cfg)
     if not 0 <= row0 < cfg.n_states:
         raise ValueError(f"initial row {row0} outside S={cfg.n_states}")
-    devs = {x.device.type for x in (ln, tg, cm)}
-    if devs == {"cpu"}:
+    if _device_of(cfg, ln, tg, cm) == "cpu":
         return sweep_reference(ln, tg, cm, cfg, row0)
-    if devs != {"cuda"} or len({x.device for x in (ln, tg, cm)}) != 1:
-        raise ValueError(f"ln, tg and cm must lie on one CUDA device or "
-                         f"all on the CPU; got {[x.device for x in (ln, tg, cm)]}")
-    for name, x in (("ln", ln), ("tg", tg), ("cm", cm)):
-        if x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor")
-    lib = _lib()
+    B, R = tg.shape
     out = torch.empty((B, 5), dtype=torch.int32, device=cm.device)
-    stream = torch.cuda.current_stream(cm.device).cuda_stream
     with torch.cuda.device(cm.device):
-        rc = lib.wgl3_sweep_launch(ln.data_ptr(), tg.data_ptr(),
-                                   cm.data_ptr(), out.data_ptr(), B, R,
-                                   cfg.n_states, cfg.k_slots, row0, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"wgl3_sweep launch failed: "
-            f"{lib.wgl3_sweep_error_string(rc).decode()} (code {rc})")
-    launches += 1
+        _launch("wgl3_sweep", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
+                out.data_ptr(), None, None, B, R, cfg.n_states, cfg.k_slots,
+                row0, _stream(cm))
+    launches["dense_sweep"] += 1
     return out
+
+
+def dense_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
+                          cm: torch.Tensor, cfg: wgl3.DenseConfig,
+                          T: torch.Tensor, meta: torch.Tensor):
+    """One window of the dense sweep from a carry: ln, tg, cm as for
+    dense_sweep, T int32[B,S,W], meta int32[B,5] -> the next (T, meta).
+
+    On CUDA tensors this launches csrc/wgl3_sweep.cu with its carry
+    pointers set, and the kernel updates T and meta in place; on CPU
+    tensors it runs the plain version."""
+    check_geometry(cfg)
+    if meta.shape[-1] != 5:
+        raise ValueError(f"dense meta has 5 slots; got {tuple(meta.shape)}")
+    if _device_of(cfg, ln, tg, cm, (T, meta)) == "cpu":
+        return resumable_reference(ln, tg, cm, cfg, T, meta)
+    B, R = tg.shape
+    with torch.cuda.device(cm.device):
+        _launch("wgl3_sweep", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
+                None, T.data_ptr(), meta.data_ptr(), B, R, cfg.n_states,
+                cfg.k_slots, 0, _stream(cm))
+    launches["dense_sweep_resumable"] += 1
+    return T, meta
+
+
+def sparse_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
+                           cm: torch.Tensor, cfg: wgl3.DenseConfig,
+                           T: torch.Tensor, meta: torch.Tensor,
+                           thresh_blocks: int):
+    """One window of the sparse work-list sweep from a carry: as
+    dense_sweep_resumable with meta int32[B,8]; a closure round with at
+    most `thresh_blocks` live blocks sweeps only those.
+
+    On CUDA tensors this launches csrc/wgl3_sparse.cu, which updates T and
+    meta in place; on CPU tensors it runs the plain version."""
+    check_geometry(cfg)
+    nb = cfg.n_words // wgl3.SPARSE_BLOCK_WORDS
+    if not 2 <= nb <= MAX_BLOCKS:
+        raise ValueError(f"wgl3_sparse takes 13 <= K <= 18 (2 to 64 blocks "
+                         f"of 128 words); got K={cfg.k_slots}")
+    if meta.shape[-1] != 8:
+        raise ValueError(f"sparse meta has 8 slots; got {tuple(meta.shape)}")
+    if _device_of(cfg, ln, tg, cm, (T, meta)) == "cpu":
+        return sparse_reference(ln, tg, cm, cfg, T, meta, thresh_blocks)
+    B, R = tg.shape
+    with torch.cuda.device(cm.device):
+        _launch("wgl3_sparse", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
+                T.data_ptr(), meta.data_ptr(), B, R, cfg.n_states,
+                cfg.k_slots, cfg.rounds, thresh_blocks, _stream(cm))
+    launches["sparse_sweep_resumable"] += 1
+    return T, meta
+
+
+# -- the long route ----------------------------------------------------------
+
+def long_window(lim=None) -> int:
+    """Steps per window of the resumable sweeps: the largest step bucket
+    within limits().long_window_steps (the cap itself below 64)."""
+    lim = lim or limits()
+    window = lim.long_window_steps
+    if window >= 64:
+        b = 64
+        while wgl3.step_bucket(b + 1) <= lim.long_window_steps:
+            b = wgl3.step_bucket(b + 1)
+        window = b
+    return window
+
+
+def sparse_selected(cfg: wgl3.DenseConfig) -> bool:
+    """The long route takes the sparse kernel where the density policy
+    (ops/wgl3_sparse.sparse_plan) selects the sparse sweep."""
+    return sparse_plan(cfg) is not None
+
+
+class BudgetExhausted(Exception):
+    """The long sweep's time budget ran out before the window starting at
+    return step `step`."""
+
+    def __init__(self, step: int, budget_s: float):
+        super().__init__(f"long sweep exceeded its {budget_s:.0f}s time "
+                         f"budget at return step {step}")
+        self.step = step
+
+
+def start_carry(model: Model, cfg: wgl3.DenseConfig, device=None,
+                sparse: bool = False):
+    """The kernels' carry of a fresh search on `device` (None = cuda):
+    table int32[1,S,W] and meta int32[1,5] (int32[1,8] when `sparse`)."""
+    T, meta = wgl3.fresh_carry(cfg, wgl3.init_row(model, cfg), 1,
+                               resolve_device(device), 8 if sparse else 5)
+    return wgl3.words32(T), meta.to(torch.int32)
+
+
+def prepare_steps(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
+                  device=None, start: int = 0, stop: int | None = None):
+    """Return steps [start, stop) of rs as the resumable sweeps read them,
+    prepared on `device` (None = cuda) in one copy: (tg int32[1,n],
+    cm int32[1,n,S,K])."""
+    dev = resolve_device(device)
+    sl = slice(start, rs.n_steps if stop is None else stop)
+    tabs, act, tgt = (torch.from_numpy(np.ascontiguousarray(a[None, sl]))
+                      .to(dev)
+                      for a in (rs.slot_tabs, rs.slot_active, rs.targets))
+    _ln, tg, cm = prepare_colmask(model, cfg, tabs, act, tgt)
+    return tg, cm
+
+
+def window_sweep(sweep, tg: torch.Tensor, cm: torch.Tensor,
+                 cfg: wgl3.DenseConfig, carry, window: int, *,
+                 step0: int = 0, t0: float | None = None,
+                 time_budget_s: float | None = None):
+    """Sweep prepared steps (prepare_steps) window by window from `carry`
+    through `sweep`, a resumable wrapper or its plain version called as
+    sweep(ln, tg, cm, cfg, T, meta); yields the carry after each window.
+
+    The windows chain on one stream without a host sync. With a time
+    budget (counted from `t0`) each window ends in a synchronize, and
+    BudgetExhausted is raised before a window that would start past it
+    (`step0` is the first step's index in the history)."""
+    T, meta = carry
+    n = tg.shape[1]
+    starts = range(0, n, window)
+    lns = torch.tensor([min(window, n - w0) for w0 in starts],
+                       dtype=torch.int32, device=tg.device)
+    for i, w0 in enumerate(starts):
+        if (time_budget_s is not None
+                and time.monotonic() - t0 > time_budget_s):
+            raise BudgetExhausted(step0 + w0, time_budget_s)
+        win = slice(w0, w0 + window)
+        T, meta = sweep(lns[i:i + 1], tg[:, win], cm[:, win], cfg, T, meta)
+        if time_budget_s is not None and tg.device.type == "cuda":
+            torch.cuda.synchronize(tg.device)
+        yield T, meta
+
+
+def run_chain(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
+              device=None, *, sparse: bool = False, upto: int | None = None,
+              carry=None, time_budget_s: float | None = None):
+    """Sweep rs's return steps (the first `upto` of them) in windows of
+    long_window() steps through the resumable dense or sparse wrapper on
+    `device` (None = cuda); returns the final carry (T, meta).
+
+    The column masks of the whole history are prepared on the device once
+    (prepare_steps) and the windows run through window_sweep. A `carry`
+    resumes where its meta's offset says. The sparse sweep takes its
+    live-block threshold from the density policy."""
+    t0 = time.monotonic()
+    dev = resolve_device(device)
+    if sparse:
+        plan = sparse_plan(cfg)
+        if plan is None:
+            raise ValueError(f"the sparse sweep is off for k_slots="
+                             f"{cfg.k_slots} under the active limits")
+        sweep = partial(sparse_sweep_resumable,
+                        thresh_blocks=plan.thresh_blocks)
+    else:
+        sweep = dense_sweep_resumable
+    if carry is None:
+        carry = start_carry(model, cfg, "cpu", sparse)
+    start = int(carry[1][0, 4])
+    T, meta = (x.to(dev).contiguous() for x in carry)
+    n = rs.n_steps if upto is None else min(upto, rs.n_steps)
+    if start >= n:
+        return T, meta
+    tg, cm = prepare_steps(rs, model, cfg, dev, start, n)
+    for T, meta in window_sweep(sweep, tg, cm, cfg, (T, meta), long_window(),
+                                step0=start, t0=t0,
+                                time_budget_s=time_budget_s):
+        pass
+    return T, meta
+
+
+def long_result(meta_row) -> dict:
+    """A chain's final meta -> the long sweep's result dict. The i32
+    configs_explored accumulator wraps across windows; a negative final
+    count saturates to 2^31 - 1, as the JAX package's long sweeps do."""
+    m = [int(x) for x in meta_row]
+    cfgs = m[3] if m[3] >= 0 else 2**31 - 1
+    res = {"survived": m[0] == 0, "overflow": False, "dead_step": m[1],
+           "max_frontier": m[2], "configs_explored": cfgs}
+    res["valid"] = wgl3.verdict(res)
+    return res
+
+
+def _exhausted(e: BudgetExhausted) -> dict:
+    return {"valid": "unknown", "survived": False, "overflow": True,
+            "dead_step": -1, "max_frontier": -1, "configs_explored": -1,
+            "kernel": "exhausted", "error": str(e)}
+
+
+def _empty_history() -> dict:
+    # The initial state trivially survives an empty history.
+    return {"survived": True, "overflow": False, "dead_step": -1,
+            "max_frontier": 1, "configs_explored": 0, "valid": True}
+
+
+def check_steps3_long(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
+                      device=None, time_budget_s: float | None = None
+                      ) -> dict:
+    """One history of any length through the resumable dense sweep, on
+    `device` (None = cuda). On budget expiry the result is the tri-state
+    "unknown" with overflow set."""
+    resolve_device(device)
+    if rs.n_steps == 0:
+        return _empty_history()
+    try:
+        _T, meta = run_chain(rs, model, cfg, device,
+                             time_budget_s=time_budget_s)
+    except BudgetExhausted as e:
+        return _exhausted(e)
+    return long_result(meta[0].cpu().tolist())
+
+
+def check_steps3_long_sparse(rs: ReturnSteps, model: Model,
+                             cfg: wgl3.DenseConfig, device=None,
+                             time_budget_s: float | None = None) -> dict:
+    """check_steps3_long through the sparse work-list sweep, with the
+    sweep record (sweep mode and live-tile ratio over 128-word blocks)."""
+    plan = sparse_plan(cfg)
+    if plan is None:
+        raise ValueError(f"the sparse sweep is off for k_slots="
+                         f"{cfg.k_slots} under the active limits")
+    dev = resolve_device(device)
+    if rs.n_steps == 0:
+        return _empty_history()
+    try:
+        _T, meta = run_chain(rs, model, cfg, dev, sparse=True,
+                             time_budget_s=time_budget_s)
+    except BudgetExhausted as e:
+        return _exhausted(e)
+    m = meta[0].cpu().tolist()
+    res = long_result(m)
+    res["kernel"] = ("wgl3-dense-cuda-sparse-chunked" if dev.type == "cuda"
+                     else "wgl3-dense-plain-sparse-chunked")
+    res["sweep"] = wgl3.sweep_summary(
+        live_sum=float(max(0, m[5])), real_steps=m[7], sparse_steps=m[6],
+        tiling=(wgl3.SPARSE_BLOCK_WORDS, plan.blocks))
+    res["live_tile_ratio"] = res["sweep"]["live_tile_ratio"]
+    return res
+
+
+def run_long_dense(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
+                   device=None, time_budget_s: float | None = None) -> dict:
+    """One dense-feasible history longer than a scan: the planned long
+    sweep (plan.dispatch_long), its result in the batch schema."""
+    from ..plan import dispatch_long
+
+    one = dispatch_long(rs, model, cfg, device, time_budget_s=time_budget_s)
+    one["op_count"] = rs.n_ops
+    one["table_cells"] = cfg.n_states * cfg.n_masks
+    return one
 
 
 # -- routing ---------------------------------------------------------------
@@ -152,14 +476,18 @@ def partition_dense(encs: Sequence[EncodedHistory], model: Model
 
 def check_batch_encoded_auto(encs: Sequence[EncodedHistory],
                              model: Model | None = None, device=None,
-                             timings: dict | None = None
+                             timings: dict | None = None,
+                             time_budget_s: float | None = None
                              ) -> tuple[list[dict], str]:
-    """Check a batch of encoded histories in one launch of the dense sweep
-    on `device` (None = cuda); returns (per-history results, kernel name).
+    """Check a batch of encoded histories on `device` (None = cuda);
+    returns (per-history results, kernel name).
 
-    Histories outside this slice raise NotImplementedError: those that are
-    not dense-feasible (the sort-ladder general path, ROADMAP A-5) and
-    those longer than one scan (the resumable sweep, ROADMAP A-4).
+    A batch whose bucketed step count fits one scan (long_scan_max) runs
+    in one launch of the dense sweep. A longer one runs its histories one
+    at a time through the long route (run_long_dense), each under the
+    batch's shared geometry; `time_budget_s` bounds each of those.
+    Histories that are not dense-feasible raise NotImplementedError (the
+    sort-ladder general path, ROADMAP A-5).
 
     When `timings` is a dict, each stage synchronizes the device at its
     end and the dict gets the stage's host-clock seconds under its name."""
@@ -193,11 +521,13 @@ def check_batch_encoded_auto(encs: Sequence[EncodedHistory],
         raise NotImplementedError(
             f"no shared dense geometry for this batch ({e}); the "
             f"sort-ladder general path is ROADMAP A-5") from e
-    if r_cap > limits().long_scan_max:
-        raise NotImplementedError(
-            f"{r_cap} return steps exceed one scan (long_scan_max="
-            f"{limits().long_scan_max}); the resumable sweep is ROADMAP A-4")
     lap("batch_steps3")
+    if r_cap > limits().long_scan_max:
+        results = [run_long_dense(s, model, cfg, dev, time_budget_s)
+                   for s in steps]
+        lap("long_sweep")
+        kernels = {r["kernel"] for r in results}
+        return results, kernels.pop() if len(kernels) == 1 else "mixed"
     tabs, act, tgt = wgl3.stack_steps3(steps, r_cap, dev)
     lap("stack_h2d")
     ln, tg, cm = prepare_colmask(model, cfg, tabs, act, tgt)

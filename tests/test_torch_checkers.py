@@ -31,6 +31,7 @@ from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 from jepsen_etcd_demo_tpu_torch.ops.encode import encode_register_history
 from jepsen_etcd_demo_tpu_torch.ops.limits import (KernelLimits, limits,
                                                    set_limits)
+from jepsen_etcd_demo_tpu_torch.ops.op import Op as POp
 from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
 from jepsen_etcd_demo_tpu_torch.utils import fuzz as pfuzz
 
@@ -132,13 +133,23 @@ def test_not_dense_feasible_raises_not_implemented():
 
 
 def test_history_longer_than_one_scan_raises_not_implemented():
+    """Past one scan a dense-feasible history takes the long route (the
+    same result as the one-scan route); only a history that is not
+    dense-feasible still raises, naming the general path."""
     _, hp = fuzz_pair(30, n_ops=200, n_procs=4)
-    prev = set_limits(KernelLimits(long_scan_max=64))
+    whole = Linearizable(device="cpu").check({}, hp)
+    wide = [POp(type="invoke", f="write", value=1, process=100 + p)
+            for p in range(30)]
+    wide += [POp(type="ok", f="write", value=1, process=100 + p)
+             for p in range(30)]
+    prev = set_limits(KernelLimits(long_scan_max=64, long_window_steps=48))
     try:
-        with pytest.raises(NotImplementedError, match="A-4"):
-            Linearizable(device="cpu").check({}, hp)
+        got = Linearizable(device="cpu").check({}, hp)
+        with pytest.raises(NotImplementedError, match="A-5"):
+            Linearizable(device="cpu").check({}, wide + hp)
     finally:
         set_limits(prev)
+    assert fields(got) == fields(whole)
     assert limits().long_scan_max == 32768
 
 
@@ -197,5 +208,5 @@ def test_cli_module_entry_point(tmp_path):
         # and it does not fall back to the host.
         assert r.returncode == 2
         assert "CUDA is not available" in r.stdout
-    assert wk.launches == 0 or torch.cuda.is_available()
+    assert sum(wk.launches.values()) == 0 or torch.cuda.is_available()
 

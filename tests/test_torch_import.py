@@ -58,12 +58,16 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_module_list_covers_the_slice():
     for m in ("jepsen_etcd_demo_tpu_torch.ops.wgl3_kernels",
+              "jepsen_etcd_demo_tpu_torch.ops.wgl3_sparse",
               "jepsen_etcd_demo_tpu_torch.ops.build",
               "jepsen_etcd_demo_tpu_torch.checkers.independent",
+              "jepsen_etcd_demo_tpu_torch.checkers.witness",
               "jepsen_etcd_demo_tpu_torch.carry",
+              "jepsen_etcd_demo_tpu_torch.plan",
               "jepsen_etcd_demo_tpu_torch.cli"):
         assert m in PORT_MODULES
-    assert (PKG / "csrc" / "wgl3_sweep.cu").is_file()
+    for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh"):
+        assert (PKG / "csrc" / src).is_file(), src
 
 
 def test_chip_smoke_without_card_prints_nothing_and_fails(tmp_path):
@@ -79,3 +83,34 @@ def test_chip_smoke_without_card_prints_nothing_and_fails(tmp_path):
     p = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and p.stdout == ""
+
+
+def test_build_hashes_headers_and_reports_every_failed_source(tmp_path,
+                                                              monkeypatch):
+    """The library name covers the shared header, so an edited header
+    rebuilds; load_all starts one compiler per missing library and raises
+    with each failing source's output."""
+    from jepsen_etcd_demo_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    (csrc / "t.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    before = build.library_path("a")
+    (csrc / "t.cuh").write_text("// v2\n")
+    assert build.library_path("a") != before
+    assert build.library_path("a") != build.library_path("b")
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho \"stand-in compiler: $*\"\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError) as err:
+        build.load_all(["a", "b"])
+    msg = str(err.value)
+    assert "a.cu (exit 3)" in msg and "b.cu (exit 3)" in msg
+    assert "stand-in compiler" in build.build_log["b"]
+    assert not list((tmp_path / "build").glob("*.so"))

@@ -93,7 +93,7 @@ def _no_card():
 def test_default_device_without_card_raises():
     _no_card()
     _, pencs = _corpus(2)
-    before = wk.launches
+    before = dict(wk.launches)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         wk.check_batch_encoded_auto(pencs, PM())
     with pytest.raises(RuntimeError):

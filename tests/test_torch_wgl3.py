@@ -117,7 +117,7 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     _, pcfg, _, psteps, r_cap = _batch(12, n=5, seed=500)
     arrays = pwgl3.stack_steps3(psteps, r_cap, "cpu")
     ln, tg, cm = wk.prepare_colmask(PMODEL, pcfg, *arrays)
-    before = wk.launches
+    before = dict(wk.launches)
     got = wk.dense_sweep(ln, tg, cm, pcfg, pwgl3.init_row(PMODEL, pcfg))
     assert wk.launches == before, "the CPU path must not count a launch"
     assert got.dtype == torch.int32 and got.shape == (5, 5)
