@@ -3,18 +3,23 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases kernel # a subset, for debugging
 
-Drives the port's main paths, the register linearizability check,
-through the entry points a user calls, on the card, at the sizes of the
-JAX package's baseline and long-history lanes: a 1024-history corpus of
+Drives the port's main paths through the entry points a user calls, on
+the card. The register linearizability check, at the sizes of the JAX
+package's baseline and long-history lanes: a 1024-history corpus of
 150-op histories at concurrency 10, one 10k-op history, the 100k-op
 history of the `bench_long` recipe (68,734 return steps, five windows of
 the resumable sweep) and an invalid mutant of it, a 50k-op history at
 concurrency 16 through the sparse work-list sweep and the dense one, and
-10 independent keys of 1000 ops. It builds the CUDA kernels from csrc/
-(one nvcc per source, side by side), holds each exactly equal to its
-plain PyTorch version on the card, checks verdicts against the host
-oracle and the whole-scan kernel, and shows through the launch counters
-that each main path ran on its kernel.
+10 independent keys of 1000 ops. The elle list-append check: the JAX
+package's elle lane (10k txns) under the dense, auto and tiled routes,
+and a 12,000-txn history in the shape of Jepsen's append generator whose
+one big dependency component takes the tiled closure and its accumulate
+kernel, and a mutant with a ww cycle in that component certified against
+the host Tarjan route. It builds the CUDA kernels from csrc/ (one nvcc
+per source, side by side), holds each exactly equal to its plain PyTorch
+version on the card, checks verdicts against the host oracle, the
+whole-scan kernel and the other routes, and shows through the launch
+counters that each main path ran on its kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them; then one JSON line describing each kernel; and
@@ -25,6 +30,7 @@ Without a CUDA device it prints no result and exits 1.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
@@ -37,24 +43,34 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernel", "long_kernel", "corpus", "single", "long", "sparse",
-          "independent", "cli")
-LIBS = ("wgl3_sweep", "wgl3_sparse")
+PHASES = ("kernel", "long_kernel", "elle_kernel", "corpus", "single", "long",
+          "sparse", "independent", "elle", "cli")
+LIBS = ("wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
 # record name -> (source, TPU kernel it replaces)
 KERNELS = {"wgl3_sweep[corpus]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:1132"),
            "wgl3_sweep[single]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:169"),
            "wgl3_sweep[resume]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
-           "wgl3_sparse": (f"{CSRC}/wgl3_sparse.cu", f"{PALLAS}:610")}
+           "wgl3_sparse": (f"{CSRC}/wgl3_sparse.cu", f"{PALLAS}:610"),
+           "elle_accumulate": (f"{CSRC}/elle_accumulate.cu",
+                               "jepsen_etcd_demo_tpu/ops/cycles_tiled.py:211")}
 # Sizes of the long paths (the bench_long recipe and the sparse lane).
 LONG_OPS, SPARSE_OPS = 100_000, 50_000
 LONG_DEAD_AFTER = 40_000     # the long mutant dies past this return step
+# The elle pool history: one weak component of ~12,000 txns, past
+# elle_dense_max_nodes, so the auto route takes the tiled closure.
+POOL_TXNS, POOL_SEED = 12_000, 0xA11E
+# Its certified mutant: the first mutate_append_txns seed from 0xBAD whose
+# mutant has a ww cycle (a duplicated element in a key's longest read).
+POOL_MUTANT_SEED = 0xBCB
 # H100 SXM data-sheet rates: HBM3 at 3.35 TB/s; int32 issue = the 67
 # TFLOP/s float32 rate (FMA = 2 ops, 128 lanes per SM) over 4, since an SM
 # has 64 int32 lanes and an integer op counts once.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+# Dense int8 tensor-core rate of the H100 SXM data sheet.
+INT8_OPS_PER_S = 1979e12
 
 
 def emit(obj) -> None:
@@ -679,28 +695,388 @@ def phase_independent(dev) -> None:
           "check_s": check_s})
 
 
+def pool_txns(n_txns: int, seed: int, active: int = 3, max_ops: int = 4,
+              p_read: float = 0.5, max_writes: int = 32) -> list[tuple]:
+    """A list-append history in the shape of Jepsen's append generator:
+    `active` live keys, 1..max_ops micro-ops a txn, reads with p_read, and
+    a key retired for a fresh one after max_writes appends. The txns run
+    serially against a store with unique append values, so the history is
+    anomaly-free by construction. ("ok", [micro-op, ...]) tuples, as
+    utils.fuzz.gen_append_txns returns."""
+    rng = random.Random(seed)
+    store: dict = {}
+    pool = [f"k{i}" for i in range(active)]
+    fresh = active
+    txns = []
+    for _ in range(n_txns):
+        mops = []
+        for _ in range(1 + rng.randrange(max_ops)):
+            slot = rng.randrange(active)
+            k = pool[slot]
+            if rng.random() < p_read:
+                mops.append(("r", k, store.get(k, ())))
+                continue
+            store[k] = store.get(k, ()) + (len(store.get(k, ())) + 1,)
+            mops.append(("append", k, len(store[k])))
+            if len(store[k]) >= max_writes:
+                pool[slot], fresh = f"k{fresh}", fresh + 1
+        txns.append(("ok", mops))
+    return txns
+
+
+def edges(h):
+    """The (ww, wr, rw) edge matrices (bool[N, N]) of a txn history, by
+    the checker's own inference."""
+    from jepsen_etcd_demo_tpu_torch.checkers.elle import ElleGraph, _pair_txns
+
+    graph = ElleGraph()
+    for t in _pair_txns(h):
+        graph.add_txn(*t)
+    return graph.edge_matrices()
+
+
+def largest_component(full):
+    """The subgraph of full bool[N, N] on its largest weak component."""
+    import numpy as np
+
+    from jepsen_etcd_demo_tpu_torch.ops import cycles
+
+    comp = max(cycles.weak_components(full), key=len)
+    return full[np.ix_(comp, comp)]
+
+
+@functools.cache
+def pool_graph(n_txns: int = POOL_TXNS, seed: int = POOL_SEED):
+    """The pool history's ops, its dependency graph ww|wr|rw (bool[N, N])
+    and its largest weak component as a subgraph; built once."""
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import append_txn_ops
+
+    h = append_txn_ops(pool_txns(n_txns, seed))
+    ww, wr, rw = edges(h)
+    full = ww | wr | rw
+    return h, full, largest_component(full)
+
+
+def accumulate_cases(dev):
+    """(name, R_flat f32[nbb, T, T], work int32[3, G]) geometries of the
+    accumulate: an empty list, one product, all nb^3 products at nb=8
+    and T=256 (each destination takes nb), T=128 and T=512, with zero-sink
+    entries (index nbb) mixed in; random 0/1 tiles, every third empty."""
+    g = torch.Generator().manual_seed(0xE11A)
+
+    def grid(nb, T):
+        R = (torch.rand((nb * nb, T, T), generator=g) < 0.01).float()
+        R[1::3] = 0.0
+        return R.to(dev)
+
+    def products(nb, sel, sink=0):
+        i, k, j = sel // (nb * nb), (sel // nb) % nb, sel % nb
+        w = torch.stack([i * nb + k, k * nb + j, i * nb + j])
+        w = torch.cat([w, torch.full((3, sink), nb * nb)], dim=1)
+        return w.to(torch.int32).to(dev)
+
+    every = torch.arange(8 ** 3)
+    yield "empty", grid(2, 256), products(2, torch.arange(0))
+    yield "one", grid(2, 256), products(2, torch.tensor([6]))
+    yield "all_nb8_T256", grid(8, 256), products(
+        8, every[torch.randperm(every.numel(), generator=g)])
+    yield "half_nb6_T128", grid(6, 128), products(
+        6, torch.randperm(216, generator=g)[:108], sink=7)
+    yield "all_nb3_T512", grid(3, 512), products(3, torch.arange(27), 2)
+
+
+def accumulate_bound(work, nbb: int, T: int) -> tuple[float, str]:
+    """Least time of one accumulate on this card, from the work list: the
+    unique operand tiles read and destination tiles written over the HBM
+    rate, against 2 T^3 operations a product over the int8 tensor-core
+    rate (0/1 operands are exact in int8); the larger."""
+    sa, sb, dd = work.long()
+    live = (sa < nbb) & (sb < nbb)
+    tiles = (torch.unique(torch.cat([sa[live], sb[live]])).numel()
+             + torch.unique(dd[live]).numel())
+    t_bytes = tiles * T * T * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * T ** 3 * int(live.sum()) / INT8_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def pool_round_inputs(dev):
+    """The grids that enter the sparse rounds of the pool component's
+    closure (kernel route): [(round index, R f32[nb, nb, T, T])]."""
+    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+
+    _h, _full, sub = pool_graph()
+    R = ct.grid_from_adj(sub, ct._tile(), dev)
+    out = []
+    for r, (kind, R_next, _row) in enumerate(ct.closure_rounds(R)):
+        if kind == "sparse":
+            out.append((r, R))
+        R = R_next
+    return out
+
+
+def phase_elle_kernel(dev, elle_rec) -> None:
+    """The accumulate kernel against its plain version on the card, exact
+    equality of acc: the synthetic geometries, then the work lists of the
+    pool history's real sparse rounds 0 and 3. Times the round-3 list."""
+    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+
+    rows = []
+    cases = list(accumulate_cases(dev))
+    rounds = dict(pool_round_inputs(dev))
+    assert 0 in rounds and 3 in rounds, sorted(rounds)
+    for r in (0, 3):
+        R = rounds[r]
+        nb, T = R.shape[0], R.shape[-1]
+        cases.append((f"pool_round{r}", R.reshape(nb * nb, T, T),
+                      ct.work_list(R)))
+    err = 0
+    for name, R_flat, work in cases:
+        got = ct.tile_accumulate(R_flat, work)
+        want = ct.tile_accumulate_reference(R_flat, work)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        assert torch.equal(got, want), name
+        rows.append({"case": name, "nbb": R_flat.shape[0],
+                     "T": R_flat.shape[-1], "products": work.shape[1],
+                     "destinations": int(torch.unique(work[2]).numel()),
+                     "sum": float(got.sum())})
+    name, R_flat, work = cases[-1]
+    ms, _ = cuda_ms(lambda: ct.tile_accumulate(R_flat, work), 10)
+    plain_ms, _ = cuda_ms(lambda: ct.tile_accumulate_reference(R_flat, work),
+                          3)
+    elle_rec.update(err=err, ms=ms, plain_ms=plain_ms,
+                    bound=accumulate_bound(work, R_flat.shape[0],
+                                           R_flat.shape[-1]))
+    emit({"phase": "elle_kernel_vs_plain", "ok": True, "cases": rows,
+          "pool_sparse_rounds": sorted(rounds), "round3_kernel_ms": ms,
+          "round3_plain_ms": plain_ms})
+
+
+def lane_txns():
+    """The JAX package's elle bench lane (bench.py `bench_elle`): 100 keys
+    x 100 single-append-or-read txns, each key's txns contiguous."""
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_append_txns
+
+    rng = random.Random(0xE11E)
+    txns = []
+    for k in range(100):
+        txns.extend(gen_append_txns(rng, n_txns=100, n_keys=1, max_len=1,
+                                    first_key=k))
+    return txns
+
+
+def timed_check(checker, history, **knobs):
+    """(result, seconds, route counts, accumulate launches, the check's
+    own stage seconds) of one check under the given limits."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch.ops import cycles, cycles_tiled as ct
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+
+    prev = set_limits(replace(limits(), **knobs))
+    try:
+        cycles.reset_counts()
+        ct.reset_launches()
+        stages: dict[str, float] = {}
+        t0 = time.perf_counter()
+        res = checker.check({}, history, timings=stages)
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, dict(cycles.counts),
+                ct.launches["tile_accumulate"], stages)
+    finally:
+        set_limits(prev)
+
+
+def cycle_mutant(txns, seed: int, tries: int = 64):
+    """The first mutate_append_txns mutant of txns (seeds seed, seed+1,
+    ...) whose ww|wr graph has a cycle by the host Tarjan SCC: invalid,
+    with a G0 or G1c cycle that the checker names from closures alone
+    (G-single and G2-item need a reachability query per rw edge, a BFS
+    from every node on the host route). Returns (history, its dependency
+    graph ww|wr|rw bool[N, N])."""
+    from jepsen_etcd_demo_tpu_torch.ops import cycles
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (append_txn_ops,
+                                                       mutate_append_txns)
+
+    for i in range(tries):
+        h = append_txn_ops(mutate_append_txns(random.Random(seed + i), txns))
+        ww, wr, rw = edges(h)
+        if cycles._host_cycle_mask(ww | wr).any():
+            return h, ww | wr | rw
+    raise AssertionError("no mutant with a ww|wr cycle found")
+
+
+def phase_elle(dev, elle_rec) -> None:
+    """(a) The JAX elle lane's 10k-txn history through ElleChecker under
+    elle_mode 1, 0 and 2: valid and equal. (b) The 12,000-txn pool history
+    at default limits: the auto route takes the tiled closure and its
+    kernel; the closure with the kernel and with the plain version
+    converge to the same grid and stats. A mutant with a ww cycle in the
+    big component: invalid, its check equal to the host Tarjan route's,
+    and its component's cycle mask through the tiled closure (kernel and
+    plain) equal to the host SCC's."""
+    import numpy as np
+
+    from jepsen_etcd_demo_tpu_torch.checkers import ElleChecker
+    from jepsen_etcd_demo_tpu_torch.ops import cycles, cycles_tiled as ct
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import append_txn_ops
+
+    checker = ElleChecker(device=dev)
+    lane = append_txn_ops(lane_txns())
+    timed_check(checker, lane[:400])                        # warm-up
+    routes = {}
+    for name, mode in (("dense", 1), ("auto", 0), ("tiled", 2)):
+        res, s, counts, n, _stages = timed_check(checker, lane,
+                                                 elle_mode=mode)
+        routes[name] = {"result": res, "check_s": s, "counts": counts,
+                        "launches": n}
+    ref = routes["dense"]["result"]
+    assert ref["valid"] is True, ref
+    assert all(r["result"] == ref for r in routes.values())
+    assert routes["tiled"]["launches"] > 0
+    ww, wr, rw = edges(lane)
+    _R, _cyc, lane_stats = ct.closure_tiled(ww | wr | rw, dev)
+    emit({"phase": "elle_lane", "ok": True, "txns": ref["txn_count"],
+          "edge_counts": ref["edge_counts"],
+          "routes": {k: {f: v for f, v in r.items() if f != "result"}
+                     for k, r in routes.items()},
+          "tiled_stats": lane_stats})
+
+    # (b) The pool history, at default limits.
+    h, full, sub = pool_graph()
+    res, check_s, counts, n_launch, stages = timed_check(checker, h)
+    assert res["valid"] is True, res["anomaly_types"]
+    assert counts["graphs_tiled"] > 0 and counts["tiled_rounds_sparse"] > 0
+    assert n_launch > 0, "the pool check did not launch the kernel"
+    elle_rec["launches"] = n_launch
+
+    def kernel_and_plain(adj):
+        """The tiled closure of adj with the kernel and with the plain
+        version: equal grids, cycle masks and stats; (cycle mask, stats,
+        kernel closure s, plain closure s, the converged grid)."""
+        runs = {}
+        for name, acc in (("kernel", ct.tile_accumulate),
+                          ("plain", ct.tile_accumulate_reference)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            R, cyc, st = ct.closure_tiled(adj, dev, accumulate=acc)
+            torch.cuda.synchronize()
+            runs[name] = (R, cyc, st, time.perf_counter() - t0)
+        (Rk, ck, sk, tk), (Rp, cp, sp, tp) = runs["kernel"], runs["plain"]
+        assert torch.equal(Rk, Rp) and sk == sp and np.array_equal(ck, cp)
+        return ck, sk, tk, tp, Rk
+
+    cyc, stats, closure_s, plain_closure_s, R = kernel_and_plain(sub)
+    assert not cyc.any()
+    R = ct.grid_to_matrix(R)
+    dense_ms, _ = cuda_ms(lambda: torch.clamp_max(R + R @ R, 1.0), 3)
+    del R
+
+    # The mutant: the card's default route (the big component through the
+    # tiled kernel, with a cycle in it) against the host Tarjan route.
+    mutant, mfull = cycle_mutant(pool_txns(POOL_TXNS, POOL_SEED),
+                                 POOL_MUTANT_SEED)
+    bad, bad_s, bcounts, bad_launch, bad_stages = timed_check(checker,
+                                                              mutant)
+    assert bad["valid"] is False and {"G0", "G1c"} & set(
+        bad["anomaly_types"]), bad["anomaly_types"]
+    assert bcounts["graphs_tiled"] > 0 and bad_launch > 0, bcounts
+    tarjan, tarjan_s, tcounts, _n, _st = timed_check(
+        checker, mutant, elle_mode=0, elle_cell_budget=1 << 12)
+    assert tcounts["graphs_oracle"] > 0 and tcounts["graphs_tiled"] == 0
+    assert bad == tarjan, (bad["anomaly_types"], tarjan["anomaly_types"])
+    msub = largest_component(mfull)
+    t0 = time.perf_counter()
+    host = cycles._host_cycle_mask(msub)
+    host_s = time.perf_counter() - t0
+    cycles.reset_counts()
+    assert np.array_equal(cycles.cycle_mask(msub, device=dev), host)
+    assert cycles.counts["graphs_tiled"] == 1, cycles.counts
+    mcyc, mstats, mclosure_s, _plain_s, _grid = kernel_and_plain(msub)
+    assert host.any() and np.array_equal(mcyc, host)
+    emit({"phase": "elle_pool", "ok": True, "txns": res["txn_count"],
+          "edge_counts": res["edge_counts"], "component": sub.shape[0],
+          "check_s": check_s, "counts": counts, "launches": n_launch,
+          "closure_stats": stats, "stages": stages,
+          "closure_kernel_s": closure_s,
+          "closure_plain_s": plain_closure_s,
+          "dense_round_matmul_ms": dense_ms,
+          "mutant": {"seed": POOL_MUTANT_SEED,
+                     "anomaly_types": bad["anomaly_types"],
+                     "check_s": bad_s, "counts": bcounts,
+                     "launches": bad_launch, "stages": bad_stages,
+                     "tarjan_check_s": tarjan_s, "tarjan_counts": tcounts,
+                     "component": msub.shape[0],
+                     "cycle_nodes": int(host.sum()),
+                     "closure_stats": mstats,
+                     "closure_kernel_s": mclosure_s,
+                     "host_scc_s": host_s}})
+
+
+def elle_record(elle_rec) -> dict:
+    rec = record("elle_accumulate", elle_rec.get("launches", 0),
+                 elle_rec["err"], elle_rec["ms"], elle_rec["plain_ms"],
+                 elle_rec["bound"])
+    # The plain version is cuBLAS's batched product and index_add_: the
+    # library's own way to compute this function.
+    rec["library_ms"] = elle_rec["plain_ms"]
+    return rec
+
+
+def analyze_all(paths: dict) -> dict:
+    """`cli analyze` on each {name: path}, the processes side by side:
+    {name: (exit code, stdout, stderr)}."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli", "analyze",
+         str(path)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, path in paths.items()}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            out[name] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def phase_cli() -> None:
+    """`cli analyze` on a register history file, valid and invalid, and on
+    stored append run directories (history.jsonl plus a test.json naming
+    the workload), valid and invalid: exit codes 0 and 1."""
     from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
-    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_register_history
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (append_txn_ops,
+                                                       gen_register_history)
 
     rng = random.Random(0xC11)
     valid = gen_register_history(rng, n_ops=150, n_procs=10, p_info=0.002)
     invalid = invalid_mutant(valid, 0xC12)
-    rcs = {}
+    txns = pool_txns(600, 0xC13)
+    append_bad, _full = cycle_mutant(txns, 0xC14)
+    want = {"valid": 0, "invalid": 1, "append_valid": 0, "append_invalid": 1}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, h, want in (("valid", valid, 0), ("invalid", invalid, 1)):
-            path = Path(tmp) / f"{name}.jsonl"
-            path.write_text(history_to_jsonl(h))
-            p = subprocess.run(
-                [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
-                 "analyze", str(path)], cwd=ROOT, capture_output=True,
-                text=True, timeout=600)
-            rcs[name] = p.returncode
-            assert p.returncode == want, (name, p.returncode, p.stdout,
-                                          p.stderr[-2000:])
-            if name == "invalid":
-                assert json.loads(p.stdout)["failed_op"], p.stdout
-    emit({"phase": "cli_analyze", "ok": True, "exit_codes": rcs})
+        paths = {}
+        for name, h in (("valid", valid), ("invalid", invalid)):
+            paths[name] = Path(tmp) / f"{name}.jsonl"
+            paths[name].write_text(history_to_jsonl(h))
+        for name, h in (("append_valid", append_txn_ops(txns)),
+                        ("append_invalid", append_bad)):
+            paths[name] = run = Path(tmp) / name
+            run.mkdir()
+            (run / "history.jsonl").write_text(history_to_jsonl(h))
+            (run / "test.json").write_text(json.dumps({"workload": "append"}))
+        got = analyze_all(paths)
+    for name, (rc, stdout, stderr) in got.items():
+        assert rc == want[name], (name, rc, stdout[-2000:], stderr[-2000:])
+        if name == "invalid":
+            assert json.loads(stdout)["failed_op"], stdout
+        if name.startswith("append"):
+            assert json.loads(stdout)["backend"] == "torch-closure-cuda"
+    emit({"phase": "cli_analyze", "ok": True,
+          "exit_codes": {name: r[0] for name, r in got.items()}})
 
 
 def main() -> int:
@@ -726,19 +1102,24 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for n, log in build.build_log.items()}})
     kernels: list[dict] = []
+    elle_rec: dict = {}
     runs = {"kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
+            "elle_kernel": lambda: phase_elle_kernel(dev, elle_rec),
             "corpus": lambda: phase_corpus(dev, kernels),
             "single": lambda: phase_single(dev, kernels),
             "long": lambda: phase_long(dev, kernels),
             "sparse": lambda: phase_sparse(dev, kernels),
             "independent": lambda: phase_independent(dev),
+            "elle": lambda: phase_elle(dev, elle_rec),
             "cli": phase_cli}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
             runs[name]()
             emit({"phase_seconds": name, "s": time.perf_counter() - t0})
+    if "ms" in elle_rec:
+        kernels.append(elle_record(elle_rec))
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

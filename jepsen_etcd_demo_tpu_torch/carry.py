@@ -1,7 +1,8 @@
 """Carry state across from the JAX package's arrays.
 
 This system has no weights; what the two packages share is the encoded
-history and, mid-search, the resumable sweep's carry.
+history, mid-search the resumable sweep's carry, and elle's tiled
+closure grid.
 
 ``encoded_from_numpy`` takes the JAX package's encoding as numpy (the
 dict its ``EncodedHistory.to_arrays`` returns: ``events`` and the scalar
@@ -14,6 +15,11 @@ multiple of 8, and the next metadata i32[1, 5] or i32[1, 8]) and builds
 the port's carry, so a long sweep started in JAX finishes in the port
 (``ops/wgl3_kernels.run_chain(..., carry=...)``). ``table_to_numpy``
 pads a port carry back to the JAX layout.
+
+``tiles_from_numpy`` takes the JAX package's tiled closure grid
+(``ops/cycles_tiled.closure_tiled``'s f32[nb, nb, T, T], as numpy) of an
+n-node graph and builds the port's grid, which has the same layout;
+``tiles_to_numpy`` is the way back.
 """
 
 from __future__ import annotations
@@ -65,3 +71,29 @@ def table_to_numpy(T: torch.Tensor, meta: torch.Tensor, cfg: DenseConfig
     table = np.zeros((1, _padded_rows(cfg), cfg.n_words), np.uint32)
     table[:, :cfg.n_states] = T.cpu().numpy().view(np.uint32)
     return table, meta.cpu().numpy().astype(np.int32)
+
+
+def tiles_from_numpy(grid, n: int) -> torch.Tensor:
+    """A JAX tiled-closure grid f32[nb, nb, T, T] of an n-node graph ->
+    the port's grid (same layout) on the CPU. Raises when the shape does
+    not fit n, an entry is not 0 or 1, or the padding past node n - 1
+    holds an edge."""
+    grid = np.asarray(grid)
+    if grid.ndim != 4 or grid.shape[0] != grid.shape[1] \
+            or grid.shape[2] != grid.shape[3] or grid.shape[2] % 128 \
+            or grid.shape[0] != max(1, -(-n // grid.shape[2])):
+        raise ValueError(f"JAX grid shape {grid.shape} does not fit a "
+                         f"{n}-node graph")
+    grid = grid.astype(np.float32)
+    if not np.isin(grid, (0.0, 1.0)).all():
+        raise ValueError("the JAX grid holds entries other than 0 and 1")
+    nb, T = grid.shape[0], grid.shape[2]
+    full = grid.transpose(0, 2, 1, 3).reshape(nb * T, nb * T)
+    if full[n:].any() or full[:, n:].any():
+        raise ValueError("the JAX grid holds edges in its padding")
+    return torch.from_numpy(np.ascontiguousarray(grid)).clone()
+
+
+def tiles_to_numpy(R: torch.Tensor) -> np.ndarray:
+    """The port's grid -> the JAX layout, f32[nb, nb, T, T] numpy."""
+    return R.detach().cpu().numpy().astype(np.float32)

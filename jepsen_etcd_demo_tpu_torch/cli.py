@@ -1,13 +1,18 @@
 """Command line of the port.
 
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
+        [--workload register|append|txnregister]
         [-w register|cas-register] [--device cuda|cpu]
 
 Re-checks a stored history and prints the result as one JSON object. A
-run directory is read through its history.jsonl. A keyed history (values
-are (key, value) pairs) goes through the independent-keys checker, a
-plain one through the linearizability checker. Exit code: 0 valid,
-1 invalid, 2 unknown or not checkable by this slice.
+run directory is read through its history.jsonl. The workload comes from
+--workload, else from the run directory's test.json ("workload"), else
+register. An append or txnregister history goes through the elle
+list-append or rw-register checker, strict-serializable when test.json
+records "elle_realtime". A register history that is keyed (values are
+(key, value) pairs) goes through the independent-keys checker, a plain
+one through the linearizability checker. Exit code: 0 valid, 1 invalid,
+2 unknown or not checkable by this slice.
 """
 
 from __future__ import annotations
@@ -20,10 +25,20 @@ from pathlib import Path
 from .ops.op import INVOKE, history_from_jsonl
 
 
+ELLE_WORKLOADS = ("append", "txnregister")
+
+
 def _read_history(path: Path):
     if path.is_dir():
         path = path / "history.jsonl"
     return history_from_jsonl(path.read_text())
+
+
+def _read_test(path: Path) -> dict:
+    """The run directory's test.json, {} for a bare history file or a run
+    without one."""
+    test = path / "test.json"
+    return json.loads(test.read_text()) if test.is_file() else {}
 
 
 def is_keyed(history) -> bool:
@@ -37,16 +52,29 @@ def is_keyed(history) -> bool:
                     for op in invs))
 
 
-def cmd_analyze(args) -> int:
-    from .checkers import IndependentChecker, Linearizable
+def _checker(args, path: Path, history):
+    from .checkers import (ElleChecker, ElleRwChecker, IndependentChecker,
+                           Linearizable)
 
-    # Exit 1 means "not linearizable", so a history that cannot be read
-    # or checked answers "unknown" (exit 2), never 1.
+    test = _read_test(path)
+    workload = args.workload or test.get("workload", "register")
+    if workload in ELLE_WORKLOADS:
+        cls = ElleChecker if workload == "append" else ElleRwChecker
+        return cls(realtime=bool(test.get("elle_realtime")),
+                   device=args.device)
+    if workload != "register":
+        raise NotImplementedError(f"workload {workload!r} is not ported")
+    lin = Linearizable(args.model, device=args.device)
+    return IndependentChecker(lin) if is_keyed(history) else lin
+
+
+def cmd_analyze(args) -> int:
+    # Exit 1 means "not valid", so a history that cannot be read or
+    # checked answers "unknown" (exit 2), never 1.
     try:
-        history = _read_history(Path(args.path))
-        lin = Linearizable(args.model, device=args.device)
-        checker = IndependentChecker(lin) if is_keyed(history) else lin
-        result = checker.check({}, history)
+        path = Path(args.path)
+        history = _read_history(path)
+        result = _checker(args, path, history).check({}, history)
     except (OSError, ValueError, NotImplementedError, RuntimeError) as e:
         print(json.dumps({"valid": "unknown",
                           "error": f"{type(e).__name__}: {e}"}))
@@ -61,6 +89,9 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="command", required=True)
     a = sub.add_parser("analyze", help="re-check a stored history")
     a.add_argument("path", help="run directory or history.jsonl file")
+    a.add_argument("--workload", default=None,
+                   choices=["register", *ELLE_WORKLOADS],
+                   help="default: the run's test.json, else register")
     a.add_argument("-w", "--model", default="cas-register",
                    choices=["register", "cas-register"],
                    help="model to check against (the register workload's "

@@ -6,7 +6,9 @@ directory git ignores). The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
 an unchanged one loads the library already built. Nothing here includes
 PyTorch's headers, so a build takes seconds; ``load_all`` starts the nvcc
-of every source that needs one before it waits for any.
+of every source that needs one before it waits for any. Each source
+exports ``<name>_launch`` (returns the CUDA error code, 0 when the kernel
+was launched) and ``<name>_error_string``; ``launcher`` binds the pair.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_log: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: dict[str, object] = {}
 _LOCK = threading.Lock()
 
 
@@ -92,3 +95,27 @@ def load_all(names) -> dict[str, ctypes.CDLL]:
 
 def _tmp(path: Path) -> Path:
     return path.with_name(f"{path.name}.{os.getpid()}.tmp")
+
+
+def launcher(name: str, argtypes):
+    """csrc/<name>.cu's ``<name>_launch`` bound with `argtypes` (each
+    pointer and the stream a ctypes.c_void_p, each int a ctypes.c_int).
+    Calling the result launches the kernel and raises RuntimeError with
+    CUDA's message when the launch is refused."""
+    if name not in _LAUNCHERS:
+        lib = load(name)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+
+        def launch(*args) -> None:
+            rc = fn(*args)
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed: "
+                                   f"{err(rc).decode()} (code {rc})")
+
+        _LAUNCHERS[name] = launch
+    return _LAUNCHERS[name]

@@ -1,4 +1,5 @@
-"""The kernel limits the dense check reads, with their defaults.
+"""The kernel limits the dense check and the elle closure read, with their
+defaults (the JAX package's).
 
 A frozen dataclass and nothing more: no environment overrides and no
 tuned profiles. ``set_limits`` swaps the active instance (tests use it to
@@ -37,6 +38,30 @@ class KernelLimits:
     # Live-block share, in percent, above which a closure round of the
     # sparse sweep runs dense instead (auto mode).
     sparse_density_threshold_pct: int = 25
+    # Stacked-batch element budget: a batched launch of the elle closure
+    # stacks at most this many f32 cells (chunks above it).
+    stack_element_budget: int = 1 << 26
+
+    # -- the elle closure engine (ops/cycles.py, ops/cycles_tiled.py) --
+    # Route: 0 = auto (dense squaring up to elle_dense_max_nodes, weak
+    # components above it: small ones batched, big ones tiled), 1 = dense
+    # only, 2 = tiled only. Every route gives the same verdicts.
+    elle_mode: int = 0
+    # Largest graph (nodes) the auto route closes as one dense matrix.
+    elle_dense_max_nodes: int = 2048
+    # Tile edge of the tiled closure, rounded down to a multiple of 128.
+    elle_tile: int = 256
+    # Floor of the {2^k, 1.5*2^k} batch buckets of batched closures.
+    elle_batch_floor: int = 8
+    # Tile products a sparse round of the tiled closure may take; a round
+    # with more runs as one dense matrix product.
+    elle_worklist_cap: int = 4096
+    # Eligible-product share (percent of nb^3) above which a tiled round
+    # runs dense.
+    elle_density_threshold_pct: int = 35
+    # Largest padded matrix (n_pad^2 cells) a closure puts on the card;
+    # past it the graph takes the exact host Tarjan/SCC oracle.
+    elle_cell_budget: int = 1 << 28
 
 
 _ACTIVE = KernelLimits()

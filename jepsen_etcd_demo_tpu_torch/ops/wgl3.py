@@ -159,13 +159,22 @@ def _allowed(t: torch.Tensor, w_idx: torch.Tensor) -> torch.Tensor:
     return torch.where((t < 5)[:, None], in_word, word_level)
 
 
-def _sweep(T: torch.Tensor, allowed: torch.Tensor,
-           tr: torch.Tensor) -> torch.Tensor:
-    """One Gauss-Seidel sweep: fire each slot once, in slot order, so
-    chains within the sweep propagate. T int64[B, S, W], tr bool[B, K, S, S']."""
+def firing_slots(tr: torch.Tensor) -> list[int]:
+    """The slots j with any transition in tr bool[..., K, S, S'] (in any
+    history of a batch), ascending. Firing any other slot ORs in nothing,
+    so a sweep over these alone gives the same table."""
+    K = tr.shape[-3]
+    fires = tr.reshape(-1, K, tr.shape[-2] * tr.shape[-1]).any(-1).any(0)
+    return torch.nonzero(fires).flatten().tolist()
+
+
+def _sweep(T: torch.Tensor, allowed: torch.Tensor, tr: torch.Tensor,
+           slots: list[int]) -> torch.Tensor:
+    """One Gauss-Seidel sweep: fire each of `slots` (firing_slots of tr)
+    once, in slot order, so chains within the sweep propagate.
+    T int64[B, S, W], tr bool[B, K, S, S']."""
     B, S, W = T.shape
-    K = tr.shape[1]
-    for j in range(K):
+    for j in slots:
         src = T & allowed[:, None, :]
         if j < 5:
             fired = _or_reduce(tr[:, j], src & _LO_MASK[j])
@@ -234,9 +243,10 @@ def sweep_plain_carry(trans: torch.Tensor, targets: torch.Tensor,
         t = tg[:, r].clamp(min=0)
         allowed = _allowed(t, w_idx)
         tr = trans[:, r]
+        slots = firing_slots(tr)
         Tc = T
         while True:
-            Tn = _sweep(Tc, allowed, tr)
+            Tn = _sweep(Tc, allowed, tr, slots)
             if torch.equal(Tn, Tc):
                 break
             Tc = Tn
@@ -284,9 +294,9 @@ def block_live(T: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def _sparse_round(T: torch.Tensor, live: list, allowed: torch.Tensor,
-                  tr: torch.Tensor) -> torch.Tensor:
+                  tr: torch.Tensor, slots: list[int]) -> torch.Tensor:
     """One closure round over the live blocks only, T int64[S, W],
-    allowed int64[W], tr bool[K, S, S'].
+    allowed int64[W], tr bool[K, S, S'] whose firing slots are `slots`.
 
     Blocks are taken in ascending order, as a sequential sweep of the
     work list would take them: each live block first receives what its
@@ -297,7 +307,8 @@ def _sparse_round(T: torch.Tensor, live: list, allowed: torch.Tensor,
     independent and go together, one level per bit count."""
     S, W = T.shape
     nb = W // SPARSE_BLOCK_WORDS
-    K = tr.shape[0]
+    fires = set(slots)
+    in_block = [j for j in slots if j < _BLOCK_SLOTS]
     Tb = T.reshape(S, nb, SPARSE_BLOCK_WORDS).clone()
     ab = allowed.reshape(nb, SPARSE_BLOCK_WORDS)
     bits = nb.bit_length() - 1
@@ -306,16 +317,16 @@ def _sparse_round(T: torch.Tensor, live: list, allowed: torch.Tensor,
         for bi in blocks:
             for bb in range(bits):
                 p = bi ^ (1 << bb)
-                if (bi >> bb) & 1 and live[p]:
+                if (bi >> bb) & 1 and live[p] \
+                        and _BLOCK_SLOTS + bb in fires:
                     src = Tb[:, p] & ab[p]
                     Tb[:, bi] |= _or_reduce(tr[None, _BLOCK_SLOTS + bb],
                                             src[None])[0]
         expand = [bi for bi in blocks if live[bi]]
         if expand:
             idx = torch.tensor(expand, device=T.device)
-            k_in = min(K, _BLOCK_SLOTS)
             blk = _sweep(Tb[:, idx].transpose(0, 1), ab[idx],
-                         tr[None, :k_in].expand(len(expand), -1, -1, -1))
+                         tr[None].expand(len(expand), -1, -1, -1), in_block)
             Tb[:, idx] = blk.transpose(0, 1)
     return Tb.reshape(S, W)
 
@@ -352,15 +363,16 @@ def sweep_plain_sparse(trans: torch.Tensor, targets: torch.Tensor,
             t = int(targets[b, r])
             allowed = _allowed(torch.tensor([t], device=dev), w_idx)[0]
             tr = trans[b, r]
+            slots = firing_slots(tr)
             rounds = sp_rounds = 0
             changed = True
             while changed and rounds < cfg.rounds:
                 live = block_live(Tb, nb).tolist()
                 take = sum(live) <= thresh_blocks
                 if take:
-                    Tn = _sparse_round(Tb, live, allowed, tr)
+                    Tn = _sparse_round(Tb, live, allowed, tr, slots)
                 else:
-                    Tn = _sweep(Tb[None], allowed[None], tr[None])[0]
+                    Tn = _sweep(Tb[None], allowed[None], tr[None], slots)[0]
                 changed = not torch.equal(Tn, Tb)
                 Tb = Tn
                 rounds += 1

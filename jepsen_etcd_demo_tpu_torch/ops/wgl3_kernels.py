@@ -44,7 +44,6 @@ from .wgl3_sparse import MAX_BLOCKS, sparse_plan
 launches = {"dense_sweep": 0, "dense_sweep_resumable": 0,
             "sparse_sweep_resumable": 0}
 
-_LIBS: dict[str, ctypes.CDLL] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # ln, tg, cm, out, Tio, meta, B, R, S, K, row0, stream
@@ -131,27 +130,10 @@ def check_geometry(cfg: wgl3.DenseConfig) -> None:
     wgl3._require_converging_cap(cfg)
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        from . import build
-
-        lib = build.load(name)
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = _ARGTYPES[name]
-        launch.restype = _I
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [_I]
-        err.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return _LIBS[name]
-
-
 def _launch(name: str, *args) -> None:
-    lib = _lib(name)
-    rc = getattr(lib, f"{name}_launch")(*args)
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (code {rc})")
+    from . import build
+
+    build.launcher(name, _ARGTYPES[name])(*args)
 
 
 def _device_of(cfg: wgl3.DenseConfig, ln, tg, cm, carry=()) -> str:

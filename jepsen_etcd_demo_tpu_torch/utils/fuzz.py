@@ -3,9 +3,12 @@
 `gen_register_history` simulates a linearizable CAS register with an
 explicit linearization point inside each op's invoke/complete window, so
 its histories are linearizable by construction. `mutate_history` breaks
-one (corrupts a read, or resurrects a failed cas). For the same
-`random.Random` seed both functions draw exactly the numbers the JAX
-package's generators draw, so both packages see the same histories.
+one (corrupts a read, or resurrects a failed cas). `gen_append_txns`
+runs list-append transactions serially against a store with unique
+append values, so its histories are anomaly-free by construction, and
+`mutate_append_txns` breaks one read. For the same `random.Random` seed
+every generator draws exactly the numbers the JAX package's draws, so
+both packages see the same histories.
 """
 
 from __future__ import annotations
@@ -149,3 +152,74 @@ def interleave_keyed(per_key, proc_stride: int = 1000) -> list[Op]:
                               process=proc_stride * i + int(op.process),
                               time=op.time, error=op.error))
     return ops
+
+
+def gen_append_txns(rng: random.Random, n_txns: int = 50,
+                    n_keys: int = 8, max_len: int = 3,
+                    p_read: float = 0.5, first_key: int = 0) -> list[tuple]:
+    """Serializable-by-construction list-append txn corpus (the elle
+    workload shape, checkers/elle.py): txns execute SERIALLY against a
+    per-key list store with unique append values, so every read is the
+    true list at its serialization point — anomaly-free by
+    construction. Returns ("ok", [micro-op, ...]) tuples; use
+    `append_txn_ops` to expand them into an invoke/completion history
+    and `mutate_append_txns` to break one."""
+    store: dict = {}
+    counters: dict = {}
+    txns = []
+    for _ in range(n_txns):
+        mops = []
+        for _ in range(1 + rng.randrange(max_len)):
+            k = f"k{first_key + rng.randrange(n_keys)}"
+            if rng.random() < p_read:
+                mops.append(("r", k, tuple(store.get(k, ()))))
+            else:
+                counters[k] = counters.get(k, 0) + 1
+                v = counters[k]
+                store[k] = tuple(store.get(k, ())) + (v,)
+                mops.append(("append", k, v))
+        txns.append(("ok", mops))
+    return txns
+
+
+def append_txn_ops(txns) -> list[Op]:
+    """Expand ("ok"|"fail"|"info", [mops]) txn tuples into the
+    invoke/completion Op history the elle checkers pair — one process
+    per txn, reads blanked to None on the invoke."""
+    h = []
+    for p, (typ, mops) in enumerate(txns):
+        inv = [(m[0], m[1], None) if m[0] == "r" else m for m in mops]
+        h.append(Op(type=INVOKE, f="txn", value=inv, process=p))
+        h.append(Op(type=typ, f="txn",
+                    value=mops if typ == "ok" else inv, process=p))
+    return h
+
+
+def mutate_append_txns(rng: random.Random, txns) -> list[tuple]:
+    """Corrupt a valid append-txn corpus so it is (probably) anomalous:
+    drop an element from an observed list (lost-append / rw cycles),
+    duplicate one, or swap two (incompatible-order / G0). Differential
+    tests only require the routes to AGREE, so mutants that stay valid
+    are fine."""
+    out = [(typ, [tuple(m) for m in mops]) for typ, mops in txns]
+    reads = [(i, j) for i, (typ, mops) in enumerate(out)
+             for j, m in enumerate(mops)
+             if typ == "ok" and m[0] == "r" and len(m[2]) >= 1]
+    if not reads:
+        return out
+    i, j = reads[rng.randrange(len(reads))]
+    typ, mops = out[i]
+    k, vs = mops[j][1], list(mops[j][2])
+    mode = rng.randrange(3)
+    if mode == 0 and len(vs) >= 1:
+        vs.pop(rng.randrange(len(vs)))            # lost element
+    elif mode == 1:
+        vs.insert(rng.randrange(len(vs) + 1),
+                  vs[rng.randrange(len(vs))])     # duplicate
+    elif len(vs) >= 2:
+        a, b = rng.sample(range(len(vs)), 2)
+        vs[a], vs[b] = vs[b], vs[a]               # reorder
+    else:
+        vs = vs + vs                              # duplicate the singleton
+    mops[j] = ("r", k, tuple(vs))
+    return out

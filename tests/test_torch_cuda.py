@@ -151,3 +151,39 @@ def test_long_route_launches_per_window(card):
     assert n == -(-steps.n_steps // 128) >= 3
     for f in ("valid", "dead_step", "max_frontier", "configs_explored"):
         assert got[f] == want[f]
+
+
+def test_elle_accumulate_equals_plain_on_card(card):
+    import chip_smoke
+    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+
+    ct.reset_launches()
+    launched = 0
+    for name, R_flat, work in chip_smoke.accumulate_cases(card):
+        got = ct.tile_accumulate(R_flat, work)
+        want = ct.tile_accumulate_reference(R_flat, work)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+        launched += name != "empty"
+    assert ct.launches["tile_accumulate"] == launched
+
+
+def test_elle_tiled_closure_kernel_equals_plain_on_card(card):
+    import numpy as np
+
+    import chip_smoke
+    from jepsen_etcd_demo_tpu_torch.checkers import ElleChecker
+    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import append_txn_ops
+
+    _h, _full, sub = chip_smoke.pool_graph(3000, 7)
+    ct.reset_launches()
+    Rk, ck, sk = ct.closure_tiled(sub, card)
+    assert ct.launches["tile_accumulate"] == sk["rounds_sparse"] > 0
+    Rp, cp, sp = ct.closure_tiled(sub, card, ct.tile_accumulate_reference)
+    assert torch.equal(Rk, Rp) and sk == sp and np.array_equal(ck, cp)
+    h = append_txn_ops(chip_smoke.pool_txns(3000, 7))
+    got = ElleChecker(device=card).check({}, h)
+    want = ElleChecker(device="cpu").check({}, h)
+    assert got["valid"] is True and got["backend"] == "torch-closure-cuda"
+    assert {**got, "backend": None} == {**want, "backend": None}

@@ -64,9 +64,13 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.checkers.witness",
               "jepsen_etcd_demo_tpu_torch.carry",
               "jepsen_etcd_demo_tpu_torch.plan",
-              "jepsen_etcd_demo_tpu_torch.cli"):
+              "jepsen_etcd_demo_tpu_torch.cli",
+              "jepsen_etcd_demo_tpu_torch.ops.cycles",
+              "jepsen_etcd_demo_tpu_torch.ops.cycles_tiled",
+              "jepsen_etcd_demo_tpu_torch.checkers.elle"):
         assert m in PORT_MODULES
-    for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh"):
+    for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
+                "elle_accumulate.cu"):
         assert (PKG / "csrc" / src).is_file(), src
 
 

@@ -187,3 +187,23 @@ def test_wrapper_rejects_shape_mismatch():
         wk.dense_sweep(ln, tg, cm[:, :, :4], pcfg, 1)
     with pytest.raises(ValueError):
         wk.dense_sweep(ln, tg, cm, pcfg, pcfg.n_states)
+
+
+@pytest.mark.parametrize("k", [7, 12])
+def test_sweep_over_the_firing_slots_equals_every_slot(k):
+    """A sweep that fires only firing_slots(tr) gives the table a sweep
+    over all K slots gives (exact): the other slots OR in nothing."""
+    g = torch.Generator().manual_seed(k)
+    B, S, W = 3, 8, 1 << (k - 5)
+    T = torch.randint(0, 2**32, (B, S, W), generator=g, dtype=torch.int64)
+    tr = torch.rand((B, k, S, S), generator=g) < 0.2
+    tr[:, 1::3] = False                  # slots with no transition
+    tr[1:, 2] = False                    # a slot one history fires
+    slots = pwgl3.firing_slots(tr)
+    assert 2 in slots and not set(range(1, k, 3)) & set(slots)
+    assert slots == sorted(set(range(k)) - set(range(1, k, 3)))
+    allowed = pwgl3._allowed(torch.tensor([1, 6, 0]),
+                             torch.arange(W, dtype=torch.int64))
+    every = pwgl3._sweep(T, allowed, tr, list(range(k)))
+    assert torch.equal(pwgl3._sweep(T, allowed, tr, slots), every)
+    assert not torch.equal(every, T)
