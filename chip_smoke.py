@@ -10,7 +10,9 @@ package's baseline and long-history lanes: a 1024-history corpus of
 history of the `bench_long` recipe (68,734 return steps, five windows of
 the resumable sweep) and an invalid mutant of it, a 50k-op history at
 concurrency 16 through the sparse work-list sweep and the dense one, and
-10 independent keys of 1000 ops. The elle list-append check: the JAX
+10 independent keys of 1000 ops. First it measures the card's int32 ALU
+peak with the port of bench.py's probe (csrc/alu_peak.cu), the yardstick
+beside the data-sheet rate. The elle list-append check: the JAX
 package's elle lane (10k txns) under the dense, auto and tiled routes,
 and a 12,000-txn history in the shape of Jepsen's append generator whose
 one big dependency component takes the tiled closure and its accumulate
@@ -22,36 +24,46 @@ whole-scan kernel and the other routes, and shows through the launch
 counters that each main path ran on its kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
-nvidia-smi reports them; then one JSON line describing each kernel; and
-last {"ok": true, "device": {...}}. Any failure raises and exits nonzero.
+nvidia-smi reports them; then one JSON line describing each kernel (a
+record whose bound counts int32 operations also gives `bound_measured_ms`,
+the same operations over the measured peak; a record of the register
+route gives `slot_table_ms`, its time with the step's slot table in
+registers and read from the step ring); and last {"ok": true,
+"device": {...}}. Any failure raises and exits nonzero.
 Without a CUDA device it prints no result and exits 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernel", "long_kernel", "elle_kernel", "corpus", "single", "long",
-          "sparse", "independent", "elle", "cli")
-LIBS = ("wgl3_sweep", "wgl3_sparse", "elle_accumulate")
+PHASES = ("peak", "kernel", "long_kernel", "elle_kernel", "corpus", "single",
+          "long", "sparse", "independent", "elle", "cli")
+LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
 # record name -> (source, TPU kernel it replaces)
-KERNELS = {"wgl3_sweep[corpus]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:1132"),
+KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
+           "wgl3_sweep[corpus]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:1132"),
            "wgl3_sweep[single]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:169"),
            "wgl3_sweep[resume]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
+           "wgl3_sweep[resume,shared]": (f"{CSRC}/wgl3_sweep.cu",
+                                         f"{PALLAS}:366"),
            "wgl3_sparse": (f"{CSRC}/wgl3_sparse.cu", f"{PALLAS}:610"),
            "elle_accumulate": (f"{CSRC}/elle_accumulate.cu",
                                "jepsen_etcd_demo_tpu/ops/cycles_tiled.py:211")}
@@ -71,17 +83,28 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # Dense int8 tensor-core rate of the H100 SXM data sheet.
 INT8_OPS_PER_S = 1979e12
+# Iterations of the probe's exactness check against its plain version at
+# the card's full width (the timed run uses bench.py's 200,000).
+PEAK_CHECK_ITERS = 300
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def smi() -> str:
+def smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def issue_rate(sms: int) -> tuple[float, float]:
+    """(thread-instructions per second the card can issue at its maximum
+    SM clock: one warp instruction per clock on each of an SM's 4
+    schedulers, the clock in MHz) from nvidia-smi."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return sms * 4 * 32 * mhz * 1e6, mhz
 
 
 def cuda_ms(fn, reps: int, warm: bool = True):
@@ -109,8 +132,32 @@ def popcount32(x):
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+class Bound(NamedTuple):
+    """A kernel's least time on this card: `ms`, the larger of `bytes_ms`
+    (bytes over the HBM rate) and its operations over their data-sheet
+    rate; `by` names the larger. `int32_ops` is the int32 operations
+    counted, or None when the operations are not on the int32 rate."""
+    ms: float
+    by: str
+    bytes_ms: float
+    int32_ops: float | None
+
+    @staticmethod
+    def of(t_ops: float, t_bytes: float, int32_ops=None) -> "Bound":
+        if t_ops >= t_bytes:
+            return Bound(t_ops, "operations", t_bytes, int32_ops)
+        return Bound(t_bytes, "bytes", t_bytes, int32_ops)
+
+    def measured_ms(self, peak_ops_per_s: float | None) -> float | None:
+        """The same bound with the int32 operations over the measured
+        peak in place of the data-sheet rate (None without either)."""
+        if self.int32_ops is None or not peak_ops_per_s:
+            return None
+        return max(self.bytes_ms, self.int32_ops / peak_ops_per_s * 1e3)
+
+
 def bound(cfg, inputs, dead_step, launches: int = 1, carry: bool = False,
-          live_frac: float = 1.0) -> tuple[float, str]:
+          live_frac: float = 1.0) -> Bound:
     """Least time for the sweep's work on this card, counted from this
     run's data. Only the steps each history needs (up to its death) count;
     each reads its column masks and target once. Its closure is at least
@@ -145,9 +192,8 @@ def bound(cfg, inputs, dead_step, launches: int = 1, carry: bool = False,
     nbytes = steps * (S * K + 1) * 4 + b * 4 + b * 5 * 4
     if carry:
         nbytes += launches * b * 2 * (S * W + 8) * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return Bound.of(ops / INT32_OPS_PER_S * 1e3,
+                    nbytes / HBM_BYTES_PER_S * 1e3, ops)
 
 
 def prepared(encs, model, dev):
@@ -158,16 +204,52 @@ def prepared(encs, model, dev):
     return cfg, wk.prepare_colmask(model, cfg, *arrays)
 
 
-def record(name, launches, err, ms, plain_ms, bound_pair) -> dict:
+def record(name, launches, err, ms, plain_ms, b: Bound) -> dict:
+    """A kernels-line record (without bound_measured_ms, which main()
+    adds from the record's Bound once the peak is known)."""
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_pair[0],
-            "bound_by": bound_pair[1], "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b.ms,
+            "bound_by": b.by, "library_ms": None}
 
 
-def kernel_record(name, cfg, inputs, row0, launches, reps) -> dict:
-    """Whole-scan kernel vs plain on the card (exact), times and bound."""
+def kernels_line(kernels, peak_ops_per_s) -> list[dict]:
+    """The kernels line from (record, Bound) pairs: each record with its
+    bound_measured_ms (the int32 operations over the measured peak)."""
+    return [{**rec, "bound_measured_ms": b.measured_ms(peak_ops_per_s)}
+            for rec, b in kernels]
+
+
+def register_route(cfg) -> bool:
+    """Whether csrc/wgl3_sweep.cu's launcher keeps cfg's table in one
+    warp's registers (its wgl3_sweep_register_route), else in shared
+    memory."""
+    from jepsen_etcd_demo_tpu_torch.ops import build
+
+    fn = build.load("wgl3_sweep").wgl3_sweep_register_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return bool(fn(cfg.n_states, cfg.k_slots))
+
+
+def slot_table_ms(run, want, reps) -> dict:
+    """{slot table: device ms} of run(slot_table) for each forced slot
+    table of the register route, each result exactly equal to `want` (the
+    plain version's); timing launches, made after the main path's counts
+    were read."""
+    out = {}
+    for where in ("registers", "ring"):
+        ms, got = cuda_ms(lambda: run(where), reps)
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), where
+        out[where] = ms
+    return out
+
+
+def kernel_record(name, cfg, inputs, row0, launches, reps):
+    """Whole-scan kernel vs plain on the card (exact), times and bound:
+    (record, Bound)."""
     from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 
     ln, tg, cm = inputs
@@ -178,8 +260,12 @@ def kernel_record(name, cfg, inputs, row0, launches, reps) -> dict:
         lambda: wk.sweep_reference(ln, tg, cm, cfg, row0), 1, warm=False)
     err = int((got.long() - want.long()).abs().max().item())
     assert err == 0, f"{name}: kernel and plain version differ by {err}"
-    return record(name, launches, err, ms, plain_ms,
-                  bound(cfg, inputs, got[:, 2].cpu().numpy()))
+    b = bound(cfg, inputs, got[:, 2].cpu().numpy())
+    rec = record(name, launches, err, ms, plain_ms, b)
+    if register_route(cfg):
+        rec["slot_table_ms"] = slot_table_ms(lambda where: wk.dense_sweep(
+            ln, tg, cm, cfg, row0, slot_table=where), (want,), reps)
+    return rec, b
 
 
 def sweeps(sparse: bool, thresh: int = 0):
@@ -203,10 +289,11 @@ def last(chain):
 
 
 def window_record(name, model, cfg, rs, dev, sparse, thresh, launches,
-                  reps) -> dict:
+                  reps):
     """The first full window of the long route (long_window() steps of rs)
     through the resumable kernel and its plain version on the card, from
-    a fresh carry: exactly equal table and meta; times and bound."""
+    a fresh carry: exactly equal table and meta; times and bound:
+    (record, Bound)."""
     from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 
     window = wk.long_window()
@@ -228,8 +315,139 @@ def window_record(name, model, cfg, rs, dev, sparse, thresh, launches,
     m = mk[0].tolist()
     live_frac = m[5] / max(1, m[7] * cfg.n_words // 128) if sparse else 1.0
     ln = torch.tensor([tg.shape[1]], dtype=torch.int32, device=tg.device)
-    return record(name, launches, err, ms, plain_ms,
-                  bound(cfg, (ln, tg, cm), [m[1]], 1, True, live_frac))
+    b = bound(cfg, (ln, tg, cm), [m[1]], 1, True, live_frac)
+    rec = record(name, launches, err, ms, plain_ms, b)
+    if not sparse and register_route(cfg):
+        rec["slot_table_ms"] = slot_table_ms(lambda where: run(
+            functools.partial(wk.dense_sweep_resumable, slot_table=where)),
+            (Tp, mp), reps)
+    return rec, b
+
+
+def sass_text(name: str) -> str:
+    """cuobjdump -sass of the built library of csrc/<name>.cu (cuobjdump
+    from nvcc's toolkit)."""
+    from jepsen_etcd_demo_tpu_torch.ops import build
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True,
+                          check=True).stdout
+
+
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loop(sass: str, function: str, unroll: int) -> dict:
+    """The hot loop of the function whose (mangled) name contains
+    `function`, in cuobjdump -sass text: the largest body between a
+    backward branch and its target. Returns its SASS instructions per
+    source iteration (body / unroll) and the opcodes' counts per
+    iteration (the base opcode, before the first dot). Raises when the
+    function or a backward branch is missing."""
+    lines, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = function in ln.split("Function :")[1]
+            continue
+        if inside:
+            m = _SASS_LINE.search(ln)
+            if m:
+                lines.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    if not lines:
+        raise ValueError(f"no SASS for function {function}")
+    best = None
+    for addr, op, args in lines:
+        if op.split(".")[0] != "BRA":
+            continue
+        tgt = re.search(r"0x([0-9a-f]+)", args)
+        if tgt is None or int(tgt.group(1), 16) >= addr:
+            continue
+        lo = int(tgt.group(1), 16)
+        body = [o for a, o, _ in lines if lo <= a <= addr]
+        if best is None or len(body) > len(best):
+            best = body
+    if best is None:
+        raise ValueError(f"no backward branch in {function}")
+    opcodes: dict[str, float] = {}
+    for op in best:
+        base = op.split(".")[0]
+        opcodes[base] = opcodes.get(base, 0) + 1 / unroll
+    return {"body_instructions": len(best), "unroll": unroll,
+            "per_iteration": len(best) / unroll,
+            "opcodes_per_iteration": dict(sorted(opcodes.items()))}
+
+
+def probe_bound(instructions: float, issue_per_s: float,
+                nbytes: int) -> Bound:
+    """The probe's least time: its SASS instructions over the card's
+    issue rate (the probe is the int32 yardstick itself, so its bound is
+    not on that rate and has no bound_measured_ms), or its bytes over the
+    HBM rate; the larger."""
+    return Bound.of(instructions / issue_per_s * 1e3,
+                    nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_peak(dev, kernels, peak) -> None:
+    """The int32 ALU-peak probe (the port of bench.py's, kernel body at
+    bench.py:125): timed at bench.py's 200,000 iterations over the whole
+    card and over one SM; held exactly against its plain version at a few
+    hundred iterations and, timed once, at the full count; its loop's
+    SASS read back from the built library, so the word-op rate (counted as
+    bench.py counts it) stands beside the instruction rate, and its bound
+    is its instructions over the issue rate."""
+    from jepsen_etcd_demo_tpu_torch.ops import build, peak as pk
+
+    pk.reset_launches()
+    got = pk.measure_peak(dev)
+    n_launch = pk.launches["alu_peak"]
+    assert n_launch > 0, "the probe did not launch its kernel"
+    n = got["sms"] * pk.THREADS_PER_SM
+    small, _ops = pk.alu_peak(n, PEAK_CHECK_ITERS, dev)
+    want = pk.alu_peak_reference(pk.probe_input(n, dev), PEAK_CHECK_ITERS)
+    torch.cuda.synchronize()
+    assert torch.equal(small, want), "probe and plain version differ"
+    # One timed run of the plain version at the full count, also the run
+    # the timed kernel's output is held against.
+    plain_ms, plain = cuda_ms(lambda: pk.alu_peak_reference(
+        pk.probe_input(n, dev), pk.ITERS), 1, warm=False)
+    err = int((got["card_out"].long() - plain.long()).abs().max().item())
+    assert err == 0, f"alu_peak: kernel and plain version differ by {err}"
+
+    unroll = build.load("alu_peak").alu_peak_unroll
+    unroll.restype = ctypes.c_int
+    loop = sass_loop(sass_text("alu_peak"), "alu_peak_kernel", unroll())
+    # Unmerged chains take at least 3 instructions each an iteration (the
+    # xor, the shift-or-and, the add can fuse no further).
+    assert loop["per_iteration"] >= 3 * pk.CHAINS, loop
+    word_ops_per_iter = pk.CHAINS * pk.OPS
+    instr = {k: got[f"{k}_word_ops_per_s"] * loop["per_iteration"]
+             / word_ops_per_iter for k in ("card", "sm")}
+    issue, mhz = issue_rate(got["sms"])
+    assert instr["card"] <= issue, (instr, issue)
+    peak.update(card=got["card_word_ops_per_s"], sm=got["sm_word_ops_per_s"])
+    b = probe_bound(loop["per_iteration"] * pk.ITERS * n, issue, 2 * n * 4)
+    kernels.append((record("alu_peak", n_launch, err, got["card_ms"],
+                           plain_ms, b), b))
+    emit({"phase": "peak", "ok": True, "sms": got["sms"],
+          "threads_per_sm": got["threads_per_sm"], "iters": got["iters"],
+          "card_ms": got["card_ms"], "sm_ms": got["sm_ms"],
+          "card_word_ops_per_s": got["card_word_ops_per_s"],
+          "sm_word_ops_per_s": got["sm_word_ops_per_s"],
+          "spec_int32_ops_per_s": INT32_OPS_PER_S,
+          "card_word_ops_pct_of_spec":
+              100 * got["card_word_ops_per_s"] / INT32_OPS_PER_S,
+          "sass_per_iteration": loop["per_iteration"],
+          "word_ops_per_iteration": word_ops_per_iter,
+          "sass_opcodes_per_iteration": loop["opcodes_per_iteration"],
+          "card_sass_instr_per_s": instr["card"],
+          "sm_sass_instr_per_s": instr["sm"],
+          "max_sm_clock_mhz": mhz, "issue_instr_per_s": issue,
+          "card_sass_instr_pct_of_issue": 100 * instr["card"] / issue,
+          "bound_ms": b.ms, "bound_pct_of_ms": 100 * b.ms / got["card_ms"],
+          "launches": n_launch, "check_iters": PEAK_CHECK_ITERS,
+          "plain_ms": plain_ms})
 
 
 def phase_kernel(dev) -> None:
@@ -266,10 +484,14 @@ def phase_kernel(dev) -> None:
         row0 = wgl3.init_row(model, cfg)
         got = wk.dense_sweep(ln, tg, cm, cfg, row0)
         want = wk.sweep_reference(ln, tg, cm, cfg, row0)
+        ring = wk.dense_sweep(ln, tg, cm, cfg, row0, slot_table="ring")
         torch.cuda.synchronize()
         assert torch.equal(got, want), (S, K, got.tolist(), want.tolist())
+        assert torch.equal(ring, want), (S, K, ring.tolist(), want.tolist())
         rows.append({"S": S, "K": K, "histories": len(steps),
                      "r_cap": r_cap,
+                     "table": "registers" if register_route(cfg)
+                              else "shared",
                      "dead": int((got[:, 0] == 0).sum().item()),
                      "max_frontier": int(got[:, 3].max().item())})
     emit({"phase": "kernel_vs_plain", "ok": True, "geometries": rows})
@@ -335,6 +557,9 @@ def phase_long_kernel(dev) -> None:
                     assert n_win >= 3
                     m = mk[0].tolist()
                     rows.append({"kernel": "sparse" if sp else "resume",
+                                 "table": None if sp else (
+                                     "registers" if register_route(cfg)
+                                     else "shared"),
                                  "S": S, "K": K, "mutant": mutate,
                                  "thresh": thresh, "windows": n_win,
                                  "steps": rs.n_steps, "dead_step": m[1],
@@ -416,9 +641,9 @@ def phase_corpus(dev, kernels) -> None:
         assert o.valid == r["valid"] and o.dead_step(e) == r["dead_step"]
 
     cfg, inputs = prepared(enc, model, dev)
-    rec = kernel_record("wgl3_sweep[corpus]", cfg, inputs,
-                        wgl3.init_row(model, cfg), n_launch, reps=20)
-    kernels.append(rec)
+    rec, b = kernel_record("wgl3_sweep[corpus]", cfg, inputs,
+                           wgl3.init_row(model, cfg), n_launch, reps=20)
+    kernels.append((rec, b))
     emit({"phase": "corpus", "ok": True, "histories": len(enc),
           "kernel": kname, "launches": n_launch,
           "k_slots": cfg.k_slots, "n_states": cfg.n_states,
@@ -455,10 +680,10 @@ def phase_single(dev, kernels) -> None:
 
     enc = encode_register_history(h, k_slots=64)
     cfg, inputs = prepared([enc], model, dev)
-    rec = kernel_record("wgl3_sweep[single]", cfg, inputs,
-                        wgl3.init_row(model, cfg), n_launch, reps=3)
+    rec, b = kernel_record("wgl3_sweep[single]", cfg, inputs,
+                           wgl3.init_row(model, cfg), n_launch, reps=3)
     assert res["max_frontier"] > 0
-    kernels.append(rec)
+    kernels.append((rec, b))
     emit({"phase": "single_10k", "ok": True, "ops": 10_000,
           "steps": int(inputs[0][0].item()), "k_slots": cfg.k_slots,
           "launches": n_launch, "check_s": check_s,
@@ -562,9 +787,9 @@ def phase_long(dev, kernels) -> None:
                                  res["configs_explored"]]
     del tg, cm
 
-    rec = window_record("wgl3_sweep[resume]", model, cfg, rs, dev, False, 0,
-                        counts["dense_sweep_resumable"], reps=3)
-    kernels.append(rec)
+    rec, b = window_record("wgl3_sweep[resume]", model, cfg, rs, dev, False,
+                           0, counts["dense_sweep_resumable"], reps=3)
+    kernels.append((rec, b))
 
     mutant = late_mutant(h, 0.62)
     wk.reset_launches()
@@ -600,8 +825,9 @@ def phase_long(dev, kernels) -> None:
 def phase_sparse(dev, kernels) -> None:
     """A 50k-op history at concurrency 16 (K=16: 16 blocks of 128 words)
     through Linearizable twice: under sparse_mode=2 on the sparse kernel,
-    then under the default limits on the resumable dense kernel; the
-    verdict fields agree."""
+    then under the default limits on the resumable dense kernel (its
+    shared-memory route); the verdict fields agree. Each kernel is held
+    against its plain version on the first full window."""
     from dataclasses import replace
 
     from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
@@ -636,8 +862,12 @@ def phase_sparse(dev, kernels) -> None:
     finally:
         set_limits(base)
     nb = cfg.n_words // 128
-    rec = window_record("wgl3_sparse", model, cfg, rs, dev, True, nb,
-                        runs[2][2]["sparse_sweep_resumable"], reps=2)
+    assert not register_route(cfg)
+    rec, b = window_record("wgl3_sparse", model, cfg, rs, dev, True, nb,
+                           runs[2][2]["sparse_sweep_resumable"], reps=2)
+    drec, db = window_record("wgl3_sweep[resume,shared]", model, cfg, rs,
+                             dev, False, 0,
+                             runs[0][2]["dense_sweep_resumable"], reps=2)
     (sparse_res, sparse_s, sparse_counts) = runs[2]
     (dense_res, dense_s, dense_counts) = runs[0]
     assert sparse_counts["sparse_sweep_resumable"] > 0, sparse_counts
@@ -648,7 +878,7 @@ def phase_sparse(dev, kernels) -> None:
     assert all(sparse_res[f] == dense_res[f] for f in fields), \
         (sparse_res, dense_res)
     assert sparse_res["valid"] is True
-    kernels.append(rec)
+    kernels += [(rec, b), (drec, db)]
     emit({"phase": "sparse_50k", "ok": True, "ops": SPARSE_OPS,
           "steps": rs.n_steps, "k_slots": cfg.k_slots,
           "n_states": cfg.n_states, "blocks": cfg.n_words // 128,
@@ -659,7 +889,9 @@ def phase_sparse(dev, kernels) -> None:
                       **stats[0]},
           "max_frontier": dense_res["max_frontier"],
           "configs_explored": dense_res["configs_explored"],
-          "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"]})
+          "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"],
+          "dense_window_kernel_ms": drec["ms"],
+          "dense_window_plain_ms": drec["plain_ms"]})
 
 
 def phase_independent(dev) -> None:
@@ -785,7 +1017,7 @@ def accumulate_cases(dev):
     yield "all_nb3_T512", grid(3, 512), products(3, torch.arange(27), 2)
 
 
-def accumulate_bound(work, nbb: int, T: int) -> tuple[float, str]:
+def accumulate_bound(work, nbb: int, T: int) -> Bound:
     """Least time of one accumulate on this card, from the work list: the
     unique operand tiles read and destination tiles written over the HBM
     rate, against 2 T^3 operations a product over the int8 tensor-core
@@ -794,9 +1026,8 @@ def accumulate_bound(work, nbb: int, T: int) -> tuple[float, str]:
     live = (sa < nbb) & (sb < nbb)
     tiles = (torch.unique(torch.cat([sa[live], sb[live]])).numel()
              + torch.unique(dd[live]).numel())
-    t_bytes = tiles * T * T * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * T ** 3 * int(live.sum()) / INT8_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return Bound.of(2 * T ** 3 * int(live.sum()) / INT8_OPS_PER_S * 1e3,
+                    tiles * T * T * 4 / HBM_BYTES_PER_S * 1e3)
 
 
 def pool_round_inputs(dev):
@@ -817,8 +1048,10 @@ def pool_round_inputs(dev):
 def phase_elle_kernel(dev, elle_rec) -> None:
     """The accumulate kernel against its plain version on the card, exact
     equality of acc: the synthetic geometries, then the work lists of the
-    pool history's real sparse rounds 0 and 3. Times the round-3 list."""
-    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+    pool history's real sparse rounds 0 and 3. Times the round-3 list
+    through the wrapper, and its launch alone (the destination lists and
+    the zeroed output made beforehand, outside the count)."""
+    from jepsen_etcd_demo_tpu_torch.ops import build, cycles_tiled as ct
 
     rows = []
     cases = list(accumulate_cases(dev))
@@ -844,12 +1077,21 @@ def phase_elle_kernel(dev, elle_rec) -> None:
     ms, _ = cuda_ms(lambda: ct.tile_accumulate(R_flat, work), 10)
     plain_ms, _ = cuda_ms(lambda: ct.tile_accumulate_reference(R_flat, work),
                           3)
+    nbb, T = R_flat.shape[0], R_flat.shape[-1]
+    sa, sb, dst, off = ct.destination_lists(work, nbb)
+    out = torch.zeros((nbb + 1, T, T), device=dev)
+    launch = build.launcher("elle_accumulate", ct._ARGTYPES)
+    launch_ms, _ = cuda_ms(lambda: launch(
+        R_flat.data_ptr(), sa.data_ptr(), sb.data_ptr(), dst.data_ptr(),
+        off.data_ptr(), out.data_ptr(), dst.numel(), T,
+        torch.cuda.current_stream().cuda_stream), 10)
+    assert torch.equal(out, ct.tile_accumulate_reference(R_flat, work))
     elle_rec.update(err=err, ms=ms, plain_ms=plain_ms,
                     bound=accumulate_bound(work, R_flat.shape[0],
                                            R_flat.shape[-1]))
     emit({"phase": "elle_kernel_vs_plain", "ok": True, "cases": rows,
           "pool_sparse_rounds": sorted(rounds), "round3_kernel_ms": ms,
-          "round3_plain_ms": plain_ms})
+          "round3_launch_ms": launch_ms, "round3_plain_ms": plain_ms})
 
 
 def lane_txns():
@@ -1013,14 +1255,14 @@ def phase_elle(dev, elle_rec) -> None:
                      "host_scc_s": host_s}})
 
 
-def elle_record(elle_rec) -> dict:
+def elle_record(elle_rec):
     rec = record("elle_accumulate", elle_rec.get("launches", 0),
                  elle_rec["err"], elle_rec["ms"], elle_rec["plain_ms"],
                  elle_rec["bound"])
     # The plain version is cuBLAS's batched product and index_add_: the
     # library's own way to compute this function.
     rec["library_ms"] = elle_rec["plain_ms"]
-    return rec
+    return rec, elle_rec["bound"]
 
 
 def analyze_all(paths: dict) -> dict:
@@ -1101,9 +1343,11 @@ def main() -> int:
           "ptxas": {n: [ln for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in build.build_log.items()}})
-    kernels: list[dict] = []
+    kernels: list[tuple[dict, Bound]] = []
     elle_rec: dict = {}
-    runs = {"kernel": lambda: phase_kernel(dev),
+    peak: dict = {}
+    runs = {"peak": lambda: phase_peak(dev, kernels, peak),
+            "kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
             "elle_kernel": lambda: phase_elle_kernel(dev, elle_rec),
             "corpus": lambda: phase_corpus(dev, kernels),
@@ -1121,7 +1365,7 @@ def main() -> int:
     if "ms" in elle_rec:
         kernels.append(elle_record(elle_rec))
     print(card, flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels_line(kernels, peak.get("card"))})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -20,59 +20,188 @@
 //   Tio  uint32[B, S, W]   carried table (null: fresh start)
 //   meta int32[B, 5]       carried [dead, dead_step, max_frontier,
 //                          configs_explored, offset] (null with Tio)
-// With a carry the block loads Tio and meta, runs its ln steps with
+// With a carry the history loads Tio and meta, runs its ln steps with
 // dead_step = offset + r, and writes the table and the next meta (offset
-// advanced by ln) back in place: block b alone touches history b's carry.
-// A window that starts dead only advances the offset.
+// advanced by ln) back in place: history b's warp or block alone touches
+// its carry. A window that starts dead only advances the offset.
 //
-// Design. One thread block per history; grid = B. The table lives in
-// shared memory for the whole scan: dense_config admits at most 2^20
-// cells, so a table is at most 128 KiB and fits one block (above 48 KB
-// the launcher raises the dynamic shared-memory limit). Each step loads
-// its S*K column masks into shared memory, then runs Gauss-Seidel sweeps
-// over the K slots until a __syncthreads_or finds that no word changed,
-// counts the converged table with __popc and a block reduction, prunes at
-// the target slot, and stops the scan at the first empty table. The table
-// algebra is in wgl3_table.cuh.
-//   * Firing slot j < 5 stays inside a word (shift by 2^j): a thread owns
-//     a word column w for all S rows, so nothing races.
-//   * Firing slot j >= 5 moves configs from word w (bit j-5 clear) to word
-//     w + 2^(j-5): source and destination columns are disjoint, so a
-//     thread owns one such pair and ORs in place.
-//   * With the banking mask fixed, the closure is a monotone operator and
-//     has one least fixpoint above the step's starting table. Any order of
-//     firings that runs until nothing changes reaches it, so the counts
-//     equal the XLA and Pallas kernels' exactly.
-//   * A column mask usually has one or two bits set (the model is
-//     deterministic), so a thread iterates only the set bits; the masks are
-//     block-uniform, so the loop does not diverge.
+// The function. Each step closes the table under the K slots with the
+// configs whose mask has the target bit t set banked (never expanded),
+// counts the closed table, prunes at t and stops the scan at the first
+// empty table. Firing slot j < 5 shifts inside a word; slot j >= 5 moves
+// configs from word w (bit j-5 clear) to word w + 2^(j-5). With the
+// banking mask fixed the closure is a monotone operator with one least
+// fixpoint above the step's starting table: any order of firings that
+// runs until nothing changes reaches it, so the counts equal the XLA and
+// Pallas kernels' exactly. They are taken on the converged table only.
 //
-// What bounds it on this card. Every step is a chain of dependent sweeps,
-// each ending in a barrier, over a table of a few KB: the sweep is bound
-// by shared-memory bandwidth, integer issue and barrier latency, not by
-// device memory (a history's inputs are read once). A lone history runs
-// on one SM; a corpus of B histories fills the 132 SMs with B blocks. This
-// first design keeps every step's work inside one block and does not yet
-// split a lone history's table across SMs or prefetch the next step's
-// masks; a long history's windows run one after another on one SM.
+// Design. Two routes, chosen per geometry by the launcher:
+//   * Registers (S' * NR <= 32, S' = S rounded up to a power of two, NR =
+//     max(1, W/32) words per row and lane; K <= 12 at S = 8): one warp per
+//     history, the whole table in its registers. Lane L owns the word
+//     columns w = L + 32q (q < NR) of every row. Slot j < 5 is a shift
+//     inside a register; 5 <= j < 10 pairs lanes L and L ^ 2^(j-5)
+//     (__shfl_xor_sync of the fired words); j >= 10 pairs registers q and
+//     q | 2^(j-10) of one lane. The slot loop is unrolled at compile
+//     time. The step's slot table (each slot's destination rows and column
+//     masks) is read in one of two ways: shuffled once per step into every
+//     lane's registers, so a sweep reads neither shared memory nor
+//     shuffles for it, or read by each sweep from the step's ring slot (a
+//     shuffle and a broadcast shared load per slot, no per-step set-up).
+//     The launcher picks by slot_table_in_registers(); both give the same
+//     result. The fixpoint test is __any_sync and the count
+//     __reduce_add_sync: no block barrier at all. A corpus packs kWarps
+//     histories per block, one per warp.
+//   * Shared memory (larger tables): one block of up to 1024 threads per
+//     history, the table in shared memory. A sweep closes each thread's
+//     word columns under slots 0..4 without a barrier, then the slots
+//     j >= 5 that have a transition, a barrier before each; the count is
+//     taken during the sweep (the last sweep changes nothing) and summed
+//     with one shared atomic per warp (wgl3_table.cuh).
+// Both routes iterate only the destinations a slot has a transition to
+// (usually one: the model is deterministic), and both read their step
+// inputs from a ring in shared memory that cp.async fills kRing steps
+// ahead, so no step waits on device memory.
+//
+// What bounds it on this card. A step is a chain of dependent sweeps over
+// a table of a few KB: latency (shuffles, shared-memory loads, barriers
+// on the shared route) and integer issue, not device memory (a history's
+// inputs are read once). A lone history runs on one SM; a corpus of B
+// histories fills the 132 SMs. Splitting one large table over a cluster
+// of blocks is not done here.
 
 #include "wgl3_table.cuh"
 
 namespace {
 
-__global__ void wgl3_sweep_kernel(const int* __restrict__ ln,
-                                  const int* __restrict__ tg,
-                                  const uint32_t* __restrict__ cm,
-                                  int* __restrict__ out, uint32_t* Tio,
-                                  int* meta, int R, int S, int K, int row0) {
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarps = 4;  // histories per block on the register route
+
+// -- the register route ------------------------------------------------------
+
+// g[q] = OR of T[s][q] over the rows s set in m.
+template <int SP, int NR>
+__device__ __forceinline__ void gather_regs(uint32_t (&T)[SP][NR],
+                                            uint32_t m, uint32_t (&g)[NR]) {
+#pragma unroll
+  for (int q = 0; q < NR; ++q) g[q] = 0u;
+#pragma unroll
+  for (int s = 0; s < SP; ++s) {
+    if ((m >> s) & 1u) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q) g[q] |= T[s][q];
+    }
+  }
+}
+
+// Fires slot J into row d from the rows set in m: the configs with mask
+// bit J clear and not banked (a) move to bit J set. J < 5 shifts inside a
+// register; 5 <= J < 10 hands the fired words to lane L ^ 2^(J-5) (only
+// lanes with that bit set take them); J >= 10 moves register q to
+// q | 2^(J-10). Returns whether T changed.
+template <int J, int SP, int NR>
+__device__ __forceinline__ int fire_slot(uint32_t (&T)[SP][NR],
+                                         const uint32_t (&a)[NR], int lane,
+                                         int d, uint32_t m) {
+  uint32_t g[NR];
+  gather_regs<SP, NR>(T, m, g);
+  uint32_t f[NR];
+  if constexpr (J < 5) {
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      f[q] = (g[q] & a[q] & wgl3::lo_mask(J)) << (1 << J);
+  } else if constexpr (J < 10) {
+    const bool dst = (lane >> (J - 5)) & 1;
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const uint32_t v = __shfl_xor_sync(kFull, g[q] & a[q], 1 << (J - 5));
+      f[q] = dst ? v : 0u;
+    }
+  } else {
+    constexpr int B = 1 << (J - 10);
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+      f[q] = (q & B) ? (g[q & ~B] & a[q & ~B]) : 0u;
+  }
+  int changed = 0;
+#pragma unroll
+  for (int s = 0; s < SP; ++s) {
+    if (s != d) continue;
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const uint32_t nv = T[s][q] | f[q];
+      changed |= nv != T[s][q];
+      T[s][q] = nv;
+    }
+  }
+  return changed;
+}
+
+// One Gauss-Seidel sweep of slots J.. K-1 in order. With REGS the step's
+// slot table is in registers: slot j's first destination row dk[j] with
+// its column mask mk[j] (0: no transition), and its other destination rows
+// rk[j] (rare: the model is deterministic), whose masks come from shared
+// memory. Without, slot j's destination rows come from lane j's nz and
+// every mask from the ring slot cms.
+template <int J, int KMAX, bool REGS, int SP, int NR>
+__device__ __forceinline__ int sweep_slots(uint32_t (&T)[SP][NR],
+                                           const uint32_t (&a)[NR], int lane,
+                                           int K, const uint32_t* cms,
+                                           uint32_t nz,
+                                           const int (&dk)[KMAX],
+                                           const uint32_t (&mk)[KMAX],
+                                           const uint32_t (&rk)[KMAX]) {
+  if constexpr (J >= KMAX) {
+    return 0;
+  } else {
+    if (J >= K) return 0;
+    int changed = 0;
+    uint32_t rest;
+    if constexpr (REGS) {
+      if (mk[J]) changed |= fire_slot<J>(T, a, lane, dk[J], mk[J]);
+      rest = rk[J];
+    } else {
+      rest = __shfl_sync(kFull, nz, J);
+    }
+    for (uint32_t r = rest; r; r &= r - 1) {
+      const int d = __ffs(r) - 1;
+      changed |= fire_slot<J>(T, a, lane, d, cms[d * K + J]);
+    }
+    return changed |
+           sweep_slots<J + 1, KMAX, REGS>(T, a, lane, K, cms, nz, dk, mk, rk);
+  }
+}
+
+// Prune at t >= 10: registers q | B move down to q, and q | B empties.
+template <int B, int SP, int NR>
+__device__ __forceinline__ void prune_regs(uint32_t (&T)[SP][NR]) {
+  if constexpr (B < NR) {
+#pragma unroll
+    for (int s = 0; s < SP; ++s)
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        if (q & B) continue;
+        T[s][q] = T[s][q | B];
+        T[s][q | B] = 0u;
+      }
+  }
+}
+
+template <int SP, int NR, bool REGS,
+          int KMAX = 10 + (NR > 1) + (NR > 2) + (NR > 4)>
+__global__ void __launch_bounds__(kWarps * 32)
+sweep_warp_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
+                  const uint32_t* __restrict__ cm, int* __restrict__ out,
+                  uint32_t* Tio, int* meta, int B, int R, int S, int K,
+                  int row0) {
   extern __shared__ uint32_t smem[];
-  __shared__ unsigned int red[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= B) return;  // no block barrier on this route
   const int W = 1 << (K - 5);
-  uint32_t* T = smem;            // [S][W]
-  uint32_t* cms = smem + S * W;  // [S][K] column masks of the current step
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int SK = S * K;
+  uint32_t* ring = smem + (size_t)warp * wgl3::kRing * (SK + 1);
 
   int dead = 0;
   int dead_step = -1;
@@ -81,6 +210,171 @@ __global__ void wgl3_sweep_kernel(const int* __restrict__ ln,
   // configs_explored accumulates as 32-bit two's complement and wraps
   // past 2^31, as the Pallas kernels' i32 accumulator does.
   unsigned int cfgs = 0u;
+  uint32_t* Tb = Tio ? Tio + (size_t)b * S * W : nullptr;
+  uint32_t T[SP][NR];
+#pragma unroll
+  for (int s = 0; s < SP; ++s)
+#pragma unroll
+    for (int q = 0; q < NR; ++q) {
+      const int w = lane + 32 * q;
+      T[s][q] = Tb ? (s < S && w < W ? Tb[s * W + w] : 0u)
+                   : (s == row0 && w == 0 ? 1u : 0u);
+    }
+  if (Tb) {
+    const int* m = meta + (size_t)b * 5;
+    dead = m[0];
+    dead_step = m[1];
+    maxf = m[2];
+    cfgs = (unsigned int)m[3];
+    offset = m[4];
+  }
+
+  const int steps = ln[b];
+  const int* tgb = tg + (size_t)b * R;
+  const uint32_t* cmb = cm + (size_t)b * R * SK;
+  const int live_steps = dead ? 0 : steps;
+#pragma unroll
+  for (int q = 0; q < wgl3::kRing; ++q) {
+    if (q < live_steps)
+      wgl3::stage_step(ring + q * (SK + 1), tgb, cmb, q, SK, lane, 32);
+    wgl3::cp_async_commit();
+  }
+
+  for (int r = 0; r < live_steps; ++r) {
+    wgl3::cp_async_wait<wgl3::kRing - 1>();
+    __syncwarp();
+    uint32_t* slot = ring + (r % wgl3::kRing) * (SK + 1);
+    const int t = (int)slot[0];
+    const uint32_t* cms = slot + 1;
+    uint32_t a[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) a[q] = wgl3::allowed_word(lane + 32 * q, t);
+    // The step's slot table, built by lane j for slot j (and, with REGS,
+    // shuffled to every lane's registers once per step).
+    const uint32_t nz = wgl3::slot_destinations(cms, S, K, lane);
+    int dk[KMAX];
+    uint32_t mk[KMAX], rk[KMAX];
+    if constexpr (REGS) {
+      const int d0 = nz ? __ffs(nz) - 1 : 0;
+      const uint32_t m0 = nz ? cms[d0 * K + lane] : 0u;
+      const uint32_t rest = nz & (nz - 1);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        dk[j] = __shfl_sync(kFull, d0, j);
+        mk[j] = __shfl_sync(kFull, m0, j);
+        rk[j] = __shfl_sync(kFull, rest, j);
+      }
+    }
+    while (__any_sync(kFull, sweep_slots<0, KMAX, REGS>(T, a, lane, K, cms,
+                                                         nz, dk, mk, rk))) {
+    }
+
+    // Frontier size of the converged table (banked configs included).
+    unsigned int c = 0u;
+#pragma unroll
+    for (int s = 0; s < SP; ++s)
+#pragma unroll
+      for (int q = 0; q < NR; ++q) c += __popc(T[s][q]);
+    const int n = (int)__reduce_add_sync(kFull, c);
+    maxf = n > maxf ? n : maxf;
+    cfgs += (unsigned int)n;
+
+    // Prune at t: keep the configs that fired t, bit t cleared.
+    if (t < 5) {
+      const int sh = 1 << t;
+      const uint32_t lm = wgl3::lo_mask(t);
+#pragma unroll
+      for (int s = 0; s < SP; ++s)
+#pragma unroll
+        for (int q = 0; q < NR; ++q) T[s][q] = (T[s][q] >> sh) & lm;
+    } else if (t < 10) {
+      const int bit = 1 << (t - 5);
+      const bool keep = (lane & bit) == 0;
+#pragma unroll
+      for (int s = 0; s < SP; ++s) {
+        if (s >= S) break;
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          const uint32_t v = __shfl_xor_sync(kFull, T[s][q], bit);
+          T[s][q] = keep ? v : 0u;
+        }
+      }
+    } else {
+      switch (t - 10) {
+        case 0: prune_regs<1>(T); break;
+        case 1: prune_regs<2>(T); break;
+        default: prune_regs<4>(T); break;
+      }
+    }
+    uint32_t any = 0u;
+#pragma unroll
+    for (int s = 0; s < SP; ++s)
+#pragma unroll
+      for (int q = 0; q < NR; ++q) any |= T[s][q];
+    // An empty table ends the search (and is all zero).
+    if (!__any_sync(kFull, any != 0u)) {
+      dead = 1;
+      dead_step = offset + r;
+      break;
+    }
+    __syncwarp();  // every lane is done with this slot before it refills
+    if (r + wgl3::kRing < live_steps)
+      wgl3::stage_step(slot, tgb, cmb, r + wgl3::kRing, SK, lane, 32);
+    wgl3::cp_async_commit();
+  }
+  wgl3::cp_async_wait<0>();
+
+  if (lane == 0) {
+    if (out) {
+      int* o = out + (size_t)b * 5;
+      o[0] = dead ? 0 : 1;
+      o[1] = 0;
+      o[2] = dead_step;
+      o[3] = maxf;
+      o[4] = (int)cfgs;
+    }
+    if (Tb) {
+      int* m = meta + (size_t)b * 5;
+      m[0] = dead;
+      m[1] = dead_step;
+      m[2] = maxf;
+      m[3] = (int)cfgs;
+      m[4] = offset + steps;
+    }
+  }
+  if (Tb) {
+#pragma unroll
+    for (int s = 0; s < SP; ++s)
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const int w = lane + 32 * q;
+        if (s < S && w < W) Tb[s * W + w] = T[s][q];
+      }
+  }
+}
+
+// -- the shared-memory route -------------------------------------------------
+
+__global__ void __launch_bounds__(1024, 1)
+sweep_block_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
+                   const uint32_t* __restrict__ cm, int* __restrict__ out,
+                   uint32_t* Tio, int* meta, int R, int S, int K, int row0) {
+  extern __shared__ uint32_t smem[];
+  __shared__ unsigned int count[2];  // per step parity, one add per warp
+  const int W = 1 << (K - 5);
+  const int SK = S * K;
+  uint32_t* T = smem;           // [S][W]
+  uint32_t* ring = smem + S * W;  // [kRing][SK + 1]
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+
+  int dead = 0;
+  int dead_step = -1;
+  int maxf = 1;
+  int offset = 0;
+  unsigned int cfgs = 0u;  // wraps as an i32 accumulator
   uint32_t* Tb = Tio ? Tio + (size_t)b * S * W : nullptr;
   if (Tb) {
     const int* m = meta + (size_t)b * 5;
@@ -91,30 +385,53 @@ __global__ void wgl3_sweep_kernel(const int* __restrict__ ln,
     offset = m[4];
     for (int i = tid; i < S * W; i += nt) T[i] = Tb[i];
   } else {
-    for (int i = tid; i < S * W; i += nt) T[i] = 0u;
-    __syncthreads();
-    if (tid == 0) T[row0 * W] = 1u;
+    for (int i = tid; i < S * W; i += nt)
+      T[i] = i == row0 * W ? 1u : 0u;
   }
+  if (tid == 0) count[0] = count[1] = 0u;
 
   const int steps = ln[b];
   const int* tgb = tg + (size_t)b * R;
-  const uint32_t* cmb = cm + (size_t)b * R * S * K;
+  const uint32_t* cmb = cm + (size_t)b * R * SK;
+  const int live_steps = dead ? 0 : steps;
+  for (int q = 0; q < wgl3::kRing; ++q) {
+    if (q < live_steps)
+      wgl3::stage_step(ring + q * (SK + 1), tgb, cmb, q, SK, tid, nt);
+    wgl3::cp_async_commit();
+  }
 
-  for (int r = 0; r < steps && !dead; ++r) {
-    const int t = tgb[r];
-    wgl3::load_step_masks(cms, cmb, r, S, K);
-    while (__syncthreads_or(wgl3::dense_sweep(T, cms, S, K, W, t))) {
+  for (int r = 0; r < live_steps; ++r) {
+    wgl3::cp_async_wait<wgl3::kRing - 1>();
+    __syncthreads();  // step r's inputs (and the table) are in place
+    uint32_t* slot = ring + (r % wgl3::kRing) * (SK + 1);
+    const int t = (int)slot[0];
+    const uint32_t* cms = slot + 1;
+    const uint32_t nz = wgl3::slot_destinations(cms, S, K, lane);
+    unsigned int c;
+    while (__syncthreads_or(
+        wgl3::dense_sweep_staged(T, cms, S, K, W, t, nz, c))) {
     }
-    // Frontier size of the converged table (banked configs included).
-    const int n = (int)wgl3::count_table(T, S * W, red);
-    maxf = n > maxf ? n : maxf;
-    cfgs += (unsigned int)n;
-    // Prune at t; an empty table ends the search (and is all zero).
-    if (!__syncthreads_or(wgl3::prune_table(T, S, W, t))) {
+    c = __reduce_add_sync(kFull, c);
+    if (lane == 0) atomicAdd(&count[r & 1], c);
+    const int alive = __syncthreads_or(wgl3::prune_table(T, S, W, t));
+    if (tid == 0) {
+      // Frontier size of the converged table (banked configs included).
+      const int n = (int)count[r & 1];
+      count[r & 1] = 0u;  // next added to two steps (and barriers) later
+      maxf = n > maxf ? n : maxf;
+      cfgs += (unsigned int)n;
+    }
+    if (!alive) {  // an empty table ends the search (and is all zero)
       dead = 1;
       dead_step = offset + r;
+      break;
     }
+    // The sweeps are done with this slot (the barrier above): refill it.
+    if (r + wgl3::kRing < live_steps)
+      wgl3::stage_step(slot, tgb, cmb, r + wgl3::kRing, SK, tid, nt);
+    wgl3::cp_async_commit();
   }
+  wgl3::cp_async_wait<0>();
 
   __syncthreads();
   if (tid == 0) {
@@ -139,10 +456,113 @@ __global__ void wgl3_sweep_kernel(const int* __restrict__ ln,
     for (int i = tid; i < S * W; i += nt) Tb[i] = T[i];
 }
 
-// Threads per block: one per word column, at least a warp, at most 256.
-int sweep_threads(int K) {
+// -- launch geometry ---------------------------------------------------------
+
+int padded_states(int S) {
+  int p = 4;
+  while (p < S) p <<= 1;
+  return p;
+}
+
+int regs_per_row(int K) {
   const int W = 1 << (K - 5);
-  return W < 32 ? 32 : (W > 256 ? 256 : W);
+  return W < 32 ? 1 : W / 32;
+}
+
+// 1: the register route takes (S, K); 0: the shared-memory route.
+int register_route(int S, int K) {
+  return padded_states(S) * regs_per_row(K) <= 32;
+}
+
+// Where the register route keeps a step's slot table: true registers,
+// false the ring slot. slot_table 1 or 2 forces registers or the ring; 0
+// takes the rule. Registers shorten each sweep's dependent chain, which
+// sets the time of a launch with fewer histories than the card has SMs
+// (a warp alone on its SM); the ring saves each step's 3 * KMAX
+// shuffles, which cost issue slots once the SMs are shared by many
+// histories. On an H100 (700 W) registers ran 6-8% faster for one long
+// history at K=10 and K=12, the ring 11% faster for 1,024 short ones.
+cudaError_t slot_table_in_registers(int B, int slot_table, bool* regs) {
+  if (slot_table != 0) {
+    *regs = slot_table == 1;
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *regs = B < sms;
+  return e;
+}
+
+template <int SP, int NR, bool REGS>
+cudaError_t launch_warp(const void* ln, const void* tg, const void* cm,
+                        void* out, void* Tio, void* meta, int B, int R, int S,
+                        int K, int row0, cudaStream_t stream) {
+  const int warps = B < kWarps ? B : kWarps;
+  const size_t smem =
+      (size_t)warps * wgl3::kRing * (S * K + 1) * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      sweep_warp_kernel<SP, NR, REGS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  sweep_warp_kernel<SP, NR, REGS>
+      <<<(B + kWarps - 1) / kWarps, warps * 32, smem, stream>>>(
+          (const int*)ln, (const int*)tg, (const uint32_t*)cm, (int*)out,
+          (uint32_t*)Tio, (int*)meta, B, R, S, K, row0);
+  return cudaSuccess;
+}
+
+int launch(const void* ln, const void* tg, const void* cm, void* out,
+           void* Tio, void* meta, int B, int R, int S, int K, int row0,
+           int slot_table, cudaStream_t st) {
+  if ((Tio == nullptr) != (meta == nullptr) || S < 1 || S > 32 || K < 5 ||
+      slot_table < 0 || slot_table > 2)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  if (register_route(S, K)) {
+    bool regs = true;
+    e = slot_table_in_registers(B, slot_table, &regs);
+    if (e != cudaSuccess) return (int)e;
+    const int key = (padded_states(S) * 100 + regs_per_row(K)) * 2 + regs;
+#define WGL3_WARP(SP, NR, REGS)                                               \
+  case (SP * 100 + NR) * 2 + REGS:                                            \
+    e = launch_warp<SP, NR, REGS>(ln, tg, cm, out, Tio, meta, B, R, S, K,     \
+                                  row0, st);                                  \
+    break;
+#define WGL3_WARP2(SP, NR) WGL3_WARP(SP, NR, true) WGL3_WARP(SP, NR, false)
+    switch (key) {
+      WGL3_WARP2(4, 1)
+      WGL3_WARP2(8, 1)
+      WGL3_WARP2(16, 1)
+      WGL3_WARP2(32, 1)
+      WGL3_WARP2(4, 2)
+      WGL3_WARP2(8, 2)
+      WGL3_WARP2(16, 2)
+      WGL3_WARP2(4, 4)
+      WGL3_WARP2(8, 4)
+      WGL3_WARP2(4, 8)
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef WGL3_WARP2
+#undef WGL3_WARP
+  } else {
+    const int W = 1 << (K - 5);
+    const size_t smem =
+        (size_t)(S * W + wgl3::kRing * (S * K + 1)) * sizeof(uint32_t);
+    e = cudaFuncSetAttribute(sweep_block_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess) {
+      const int threads = W < 32 ? 32 : (W > 1024 ? 1024 : W);
+      sweep_block_kernel<<<B, threads, smem, st>>>(
+          (const int*)ln, (const int*)tg, (const uint32_t*)cm, (int*)out,
+          (uint32_t*)Tio, (int*)meta, R, S, K, row0);
+    }
+  }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -154,22 +574,23 @@ extern "C" {
 int wgl3_sweep_launch(const void* ln, const void* tg, const void* cm,
                       void* out, void* Tio, void* meta, int B, int R, int S,
                       int K, int row0, void* stream) {
-  if ((Tio == nullptr) != (meta == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int W = 1 << (K - 5);
-  const size_t smem = (size_t)(S * W + S * K) * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      wgl3_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (B > 0) {
-    wgl3_sweep_kernel<<<B, sweep_threads(K), smem,
-                        (cudaStream_t)stream>>>(
-        (const int*)ln, (const int*)tg, (const uint32_t*)cm, (int*)out,
-        (uint32_t*)Tio, (int*)meta, R, S, K, row0);
-  }
-  return (int)cudaGetLastError();
+  return launch(ln, tg, cm, out, Tio, meta, B, R, S, K, row0, 0,
+                (cudaStream_t)stream);
 }
+
+// wgl3_sweep_launch with the register route's slot table forced: 1 in
+// registers, 2 read from the ring slot (0: the launcher's rule). The
+// shared-memory route ignores it.
+int wgl3_sweep_launch_slot_table(const void* ln, const void* tg,
+                                 const void* cm, void* out, void* Tio,
+                                 void* meta, int B, int R, int S, int K,
+                                 int row0, int slot_table, void* stream) {
+  return launch(ln, tg, cm, out, Tio, meta, B, R, S, K, row0, slot_table,
+                (cudaStream_t)stream);
+}
+
+// 1 when (S, K) takes the register route, 0 for the shared-memory route.
+int wgl3_sweep_register_route(int S, int K) { return register_route(S, K); }
 
 const char* wgl3_sweep_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

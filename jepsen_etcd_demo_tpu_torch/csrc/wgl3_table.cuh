@@ -1,7 +1,10 @@
 // Table algebra shared by the dense sweep (wgl3_sweep.cu) and the sparse
 // work-list sweep (wgl3_sparse.cu): a thread block holds one history's
 // reachability table in shared memory and every function here is called
-// by all threads of the block.
+// by all threads of the block. The staged functions at the end (the step
+// ring filled by cp.async, the sweep over nonzero destinations only) serve
+// the dense sweep's shared-memory route; the sparse sweep keeps the
+// functions before them.
 //
 // The table is uint32[S][W], W = 2^(K-5): bit p of word w of row s is the
 // config (state row s, linearized mask w*32 + p). cms[d*K + j] is the
@@ -181,6 +184,155 @@ __device__ __forceinline__ void load_step_masks(uint32_t* cms,
   for (int i = threadIdx.x; i < S * K; i += blockDim.x)
     cms[i] = cmb[(size_t)r * S * K + i];
   __syncthreads();
+}
+
+// -- staged step inputs ------------------------------------------------------
+//
+// A ring of kRing step slots in shared memory, each S*K + 1 words: the
+// step's target slot, then its S*K column masks. The copies are cp.async
+// (one commit group per step, in step order), so a step's inputs arrive
+// while earlier steps are swept; a consumer waits for its step's group
+// with cp_async_wait<kRing - 1>() and a barrier (warp or block) that makes
+// every thread's copies visible.
+
+constexpr int kRing = 4;
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's share (words i0, i0 + stride, ...) of the copies of step r
+// into `slot`; the caller commits the group.
+__device__ __forceinline__ void stage_step(uint32_t* slot, const int* tgb,
+                                           const uint32_t* cmb, int r, int SK,
+                                           int i0, int stride) {
+  for (int i = i0; i <= SK; i += stride) {
+    if (i == 0)
+      cp_async4(slot, tgb + r);
+    else
+      cp_async4(slot + i, cmb + (size_t)r * SK + (i - 1));
+  }
+}
+
+// The destinations slot `lane` has a transition to: bit d set when
+// cms[d*K + lane] is nonzero (0 for lanes >= K). Lane j of every warp
+// holds slot j's; __shfl_sync hands it to the warp.
+__device__ __forceinline__ uint32_t slot_destinations(const uint32_t* cms,
+                                                      int S, int K, int lane) {
+  uint32_t nz = 0u;
+  if (lane < K)
+    for (int d = 0; d < S; ++d) nz |= (cms[d * K + lane] != 0u ? 1u : 0u) << d;
+  return nz;
+}
+
+// fire_in_word and fire_across (above, the sparse sweep's) over the
+// destination rows set in `nz` only.
+//
+// Fires slot j < 5 (a shift by 2^j inside word w) from the configs of
+// word w with mask bit j clear, into the rows set in `nz`; returns whether
+// a word changed.
+__device__ __forceinline__ int fire_in_word_nz(uint32_t* T,
+                                               const uint32_t* cms, int K,
+                                               int W, int w, int j, int t,
+                                               uint32_t nz) {
+  const uint32_t a = allowed_word(w, t) & lo_mask(j);
+  if (!a) return 0;
+  const int sh = 1 << j;
+  int changed = 0;
+  while (nz) {
+    const int d = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const uint32_t m = cms[d * K + j];
+    if (!m) continue;
+    const uint32_t fired = gather_sources(T, W, w, m) & a;
+    const uint32_t old = T[d * W + w];
+    const uint32_t nv = old | (fired << sh);
+    if (nv != old) {
+      T[d * W + w] = nv;
+      changed = 1;
+    }
+  }
+  return changed;
+}
+
+// Fires slot j >= 5 from source word ws into destination word wd = ws |
+// 2^(j-5) of the rows set in `nz`. Sources are never destinations of the
+// same slot, so nothing races.
+__device__ __forceinline__ int fire_across_nz(uint32_t* T, const uint32_t* cms,
+                                              int K, int W, int ws, int wd,
+                                              int j, int t, uint32_t nz) {
+  const uint32_t a = allowed_word(ws, t);
+  if (!a) return 0;
+  int changed = 0;
+  while (nz) {
+    const int d = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const uint32_t m = cms[d * K + j];
+    if (!m) continue;
+    const uint32_t fired = gather_sources(T, W, ws, m) & a;
+    const uint32_t old = T[d * W + wd];
+    const uint32_t nv = old | fired;
+    if (nv != old) {
+      T[d * W + wd] = nv;
+      changed = 1;
+    }
+  }
+  return changed;
+}
+
+// One sweep of the K slots over the whole table in shared memory, called
+// by every thread of the block. A thread first closes the word columns it
+// owns (w = tid, tid + nt, ...; all S rows) under the in-word slots 0..4,
+// with no barrier between them, counting the columns' configs before it
+// touches them; then the slots j >= 5 with a transition run one at a time,
+// a barrier before each. `nz` is this lane's slot_destinations. Returns
+// whether this thread changed a word (the caller ends the sweep with
+// __syncthreads_or); cnt gets the set bits of its columns at the sweep's
+// start, which, in the sweep that changes nothing, is its share of the
+// converged table.
+__device__ __forceinline__ int dense_sweep_staged(uint32_t* T,
+                                                  const uint32_t* cms, int S,
+                                                  int K, int W, int t,
+                                                  uint32_t nz,
+                                                  unsigned int& cnt) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  uint32_t nzin[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) nzin[j] = __shfl_sync(0xFFFFFFFFu, nz, j);
+  int changed = 0;
+  unsigned int c = 0u;
+  for (int w = tid; w < W; w += nt) {
+    for (int s = 0; s < S; ++s) c += __popc(T[s * W + w]);
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      if (nzin[j]) changed |= fire_in_word_nz(T, cms, K, W, w, j, t, nzin[j]);
+  }
+  cnt = c;
+  for (int j = 5; j < K; ++j) {
+    const uint32_t nzj = __shfl_sync(0xFFFFFFFFu, nz, j);
+    if (!nzj) continue;  // block-uniform: the masks are the block's
+    __syncthreads();
+    const int sh = j - 5;
+    const int dlt = 1 << sh;
+    for (int i = tid; i < (W >> 1); i += nt) {
+      const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
+      changed |= fire_across_nz(T, cms, K, W, ws, ws | dlt, j, t, nzj);
+    }
+  }
+  return changed;
 }
 
 }  // namespace wgl3

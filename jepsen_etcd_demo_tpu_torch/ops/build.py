@@ -97,14 +97,15 @@ def _tmp(path: Path) -> Path:
     return path.with_name(f"{path.name}.{os.getpid()}.tmp")
 
 
-def launcher(name: str, argtypes):
-    """csrc/<name>.cu's ``<name>_launch`` bound with `argtypes` (each
-    pointer and the stream a ctypes.c_void_p, each int a ctypes.c_int).
-    Calling the result launches the kernel and raises RuntimeError with
-    CUDA's message when the launch is refused."""
-    if name not in _LAUNCHERS:
+def launcher(name: str, argtypes, entry: str | None = None):
+    """csrc/<name>.cu's ``<name>_launch`` (or the export `entry`) bound
+    with `argtypes` (each pointer and the stream a ctypes.c_void_p, each
+    int a ctypes.c_int). Calling the result launches the kernel and raises
+    RuntimeError with CUDA's message when the launch is refused."""
+    entry = entry or f"{name}_launch"
+    if entry not in _LAUNCHERS:
         lib = load(name)
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
@@ -114,8 +115,8 @@ def launcher(name: str, argtypes):
         def launch(*args) -> None:
             rc = fn(*args)
             if rc != 0:
-                raise RuntimeError(f"{name} launch failed: "
+                raise RuntimeError(f"{entry} failed: "
                                    f"{err(rc).decode()} (code {rc})")
 
-        _LAUNCHERS[name] = launch
-    return _LAUNCHERS[name]
+        _LAUNCHERS[entry] = launch
+    return _LAUNCHERS[entry]

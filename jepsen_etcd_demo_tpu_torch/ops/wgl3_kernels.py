@@ -51,6 +51,12 @@ _ARGTYPES = {
     # ln, tg, cm, Tio, meta, B, R, S, K, rounds, thresh, stream
     "wgl3_sparse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+# Where csrc/wgl3_sweep.cu's register route keeps a step's slot table, as
+# its wgl3_sweep_launch_slot_table takes it: None leaves it to the
+# launcher's rule (registers for a batch of fewer histories than the card
+# has SMs, the step ring otherwise); "registers" or "ring" forces one. Both
+# give the same result; chip_smoke.py times the two.
+SLOT_TABLES = {None: 0, "registers": 1, "ring": 2}
 
 
 def reset_launches() -> None:
@@ -136,6 +142,26 @@ def _launch(name: str, *args) -> None:
     build.launcher(name, _ARGTYPES[name])(*args)
 
 
+def _launch_sweep(slot_table: str | None, *args) -> None:
+    """csrc/wgl3_sweep.cu's wgl3_sweep_launch, or with `slot_table` set
+    its wgl3_sweep_launch_slot_table; args as _ARGTYPES["wgl3_sweep"]."""
+    if slot_table is None:
+        _launch("wgl3_sweep", *args)
+        return
+    from . import build
+
+    types = _ARGTYPES["wgl3_sweep"]
+    build.launcher("wgl3_sweep", types[:-1] + [_I, _P],
+                   "wgl3_sweep_launch_slot_table")(
+        *args[:-1], SLOT_TABLES[slot_table], args[-1])
+
+
+def _check_slot_table(slot_table) -> None:
+    if slot_table not in SLOT_TABLES:
+        raise ValueError(f"slot_table is one of {sorted(SLOT_TABLES, key=str)}"
+                         f"; got {slot_table!r}")
+
+
 def _device_of(cfg: wgl3.DenseConfig, ln, tg, cm, carry=()) -> str:
     """Check the operands' shapes and placement: 'cpu' when every tensor
     lies on the host, 'cuda' when all lie on one card as contiguous int32
@@ -171,14 +197,17 @@ def _stream(x: torch.Tensor):
 
 
 def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
-                cfg: wgl3.DenseConfig, row0: int) -> torch.Tensor:
+                cfg: wgl3.DenseConfig, row0: int, *,
+                slot_table: str | None = None) -> torch.Tensor:
     """Run the dense sweep from a fresh start: ln int32[B], tg int32[B,R],
     cm int32[B,R,S,K] -> int32[B, 5] in wgl3.PACKED_FIELDS order.
 
     On CUDA tensors this launches csrc/wgl3_sweep.cu on the current stream
-    (it raises on anything the kernel does not take); on CPU tensors it
+    (it raises on anything the kernel does not take), its register route's
+    slot table where `slot_table` says (SLOT_TABLES); on CPU tensors it
     runs the plain version."""
     check_geometry(cfg)
+    _check_slot_table(slot_table)
     if not 0 <= row0 < cfg.n_states:
         raise ValueError(f"initial row {row0} outside S={cfg.n_states}")
     if _device_of(cfg, ln, tg, cm) == "cpu":
@@ -186,32 +215,35 @@ def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
     B, R = tg.shape
     out = torch.empty((B, 5), dtype=torch.int32, device=cm.device)
     with torch.cuda.device(cm.device):
-        _launch("wgl3_sweep", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
-                out.data_ptr(), None, None, B, R, cfg.n_states, cfg.k_slots,
-                row0, _stream(cm))
+        _launch_sweep(slot_table, ln.data_ptr(), tg.data_ptr(),
+                      cm.data_ptr(), out.data_ptr(), None, None, B, R,
+                      cfg.n_states, cfg.k_slots, row0, _stream(cm))
     launches["dense_sweep"] += 1
     return out
 
 
 def dense_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
                           cm: torch.Tensor, cfg: wgl3.DenseConfig,
-                          T: torch.Tensor, meta: torch.Tensor):
-    """One window of the dense sweep from a carry: ln, tg, cm as for
-    dense_sweep, T int32[B,S,W], meta int32[B,5] -> the next (T, meta).
+                          T: torch.Tensor, meta: torch.Tensor, *,
+                          slot_table: str | None = None):
+    """One window of the dense sweep from a carry: ln, tg, cm and
+    slot_table as for dense_sweep, T int32[B,S,W], meta int32[B,5] -> the
+    next (T, meta).
 
     On CUDA tensors this launches csrc/wgl3_sweep.cu with its carry
     pointers set, and the kernel updates T and meta in place; on CPU
     tensors it runs the plain version."""
     check_geometry(cfg)
+    _check_slot_table(slot_table)
     if meta.shape[-1] != 5:
         raise ValueError(f"dense meta has 5 slots; got {tuple(meta.shape)}")
     if _device_of(cfg, ln, tg, cm, (T, meta)) == "cpu":
         return resumable_reference(ln, tg, cm, cfg, T, meta)
     B, R = tg.shape
     with torch.cuda.device(cm.device):
-        _launch("wgl3_sweep", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
-                None, T.data_ptr(), meta.data_ptr(), B, R, cfg.n_states,
-                cfg.k_slots, 0, _stream(cm))
+        _launch_sweep(slot_table, ln.data_ptr(), tg.data_ptr(),
+                      cm.data_ptr(), None, T.data_ptr(), meta.data_ptr(), B,
+                      R, cfg.n_states, cfg.k_slots, 0, _stream(cm))
     launches["dense_sweep_resumable"] += 1
     return T, meta
 

@@ -187,3 +187,172 @@ def test_elle_tiled_closure_kernel_equals_plain_on_card(card):
     want = ElleChecker(device="cpu").check({}, h)
     assert got["valid"] is True and got["backend"] == "torch-closure-cuda"
     assert {**got, "backend": None} == {**want, "backend": None}
+
+
+def test_alu_peak_equals_plain_on_card(card):
+    from jepsen_etcd_demo_tpu_torch.ops import peak as pk
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    n = sms * pk.THREADS_PER_SM + 77     # a ragged last block
+    pk.reset_launches()
+    for iters in (0, 1, 300):
+        got, ops = pk.alu_peak(n, iters, card)
+        want = pk.alu_peak_reference(pk.probe_input(n, card), iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and ops == pk.word_ops(n, iters)
+    assert pk.launches["alu_peak"] == 3
+    res = pk.measure_peak(card, iters=2000, reps=1)
+    assert res["card_word_ops_per_s"] > res["sm_word_ops_per_s"] > 0
+
+
+# (K, S) from K=5 to the dense budget's largest (S * 2^K <= 2^20), on both
+# sides of the register/shared-memory cut of csrc/wgl3_sweep.cu.
+SWEEP_GEOMS = [(5, 4), (7, 8), (9, 32), (10, 8), (10, 32), (11, 16),
+               (11, 20), (12, 8), (12, 12), (13, 4), (13, 8), (14, 4),
+               (15, 16), (16, 8), (17, 8), (18, 4)]
+
+
+def test_sweep_geometries_cover_both_routes(card):
+    import chip_smoke
+
+    routes = {chip_smoke.register_route(wgl3.DenseConfig(
+        k_slots=K, n_states=S, state_offset=1)) for K, S in SWEEP_GEOMS}
+    assert routes == {True, False}
+
+
+@pytest.mark.parametrize("K,S", SWEEP_GEOMS)
+def test_sweep_routes_equal_plain_fresh_and_resumed(card, K, S):
+    """Whole scan and a chain of resumed windows, valid and mutant
+    histories that fill the high slots, against the plain versions."""
+    for seed in (300 * K + S, 300 * K + S + 1):
+        cfg, ln, tg, cm = _chain_inputs(K, S, seed, card)
+        row0 = wgl3.init_row(CASRegister(), cfg)
+        want = wk.sweep_reference(ln, tg, cm, cfg, row0)
+        want_chain = _chain(cfg, tg, cm, wk.resumable_reference, False)
+        # Every slot table of the register route (the shared-memory route
+        # takes none).
+        for where in wk.SLOT_TABLES:
+            got = wk.dense_sweep(ln, tg, cm, cfg, row0, slot_table=where)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), where
+            chain = _chain(cfg, tg, cm, partial(wk.dense_sweep_resumable,
+                                                slot_table=where), False)
+            torch.cuda.synchronize()
+            for (Tk, mk), (Tp, mp) in zip(chain, want_chain):
+                assert torch.equal(Tk, Tp) and torch.equal(mk, mp), where
+
+
+def _dying_inputs(K: int, S: int, device):
+    """A history at width K that dies past its 8th step, prepared on
+    `device`: (cfg, tg, cm, dead_step)."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (SlotOverflow,
+                                                       encode_return_steps)
+
+    model = CASRegister()
+    cfg = wgl3.DenseConfig(k_slots=K, n_states=S,
+                           state_offset=model.state_offset)
+    for i in range(500):
+        rng = random.Random(1000 * K + i)
+        h = mutate_history(rng, gen_register_history(
+            rng, n_ops=120, n_procs=min(K, 8), value_range=S - 1,
+            p_info=0.02), value_range=S - 1)
+        try:
+            enc = encode_register_history(h, k_slots=K)
+        except SlotOverflow:
+            continue
+        rs = encode_return_steps(enc)
+        tg, cm = wk.prepare_steps(rs, model, cfg, device)
+        ln = torch.tensor([tg.shape[1]], dtype=torch.int32, device=device)
+        dead = int(wk.sweep_reference(ln, tg, cm, cfg,
+                                      wgl3.init_row(model, cfg))[0, 2])
+        if dead >= 8 and tg.shape[1] >= dead + 12:
+            return cfg, tg, cm, dead
+    raise AssertionError(f"no history dies late enough at K={K}")
+
+
+@pytest.mark.parametrize("K,S", [(10, 8), (12, 8), (14, 8), (16, 4)])
+def test_resumed_windows_around_the_death(card, K, S):
+    """Windows [0, d), [d, d+5) (dead at its step 0) and [d+5, d+10)
+    (starts dead: only the offset advances), kernel against plain."""
+    cfg, tg, cm, d = _dying_inputs(K, S, card)
+    carries = {}
+    for name, sweep in (("kernel", wk.dense_sweep_resumable),
+                        ("ring", partial(wk.dense_sweep_resumable,
+                                         slot_table="ring")),
+                        ("plain", wk.resumable_reference)):
+        T, m = wk.start_carry(CASRegister(), cfg, card)
+        out = []
+        for lo, hi in ((0, d), (d, d + 5), (d + 5, d + 10)):
+            ln = torch.tensor([hi - lo], dtype=torch.int32, device=card)
+            T, m = sweep(ln, tg[:, lo:hi].contiguous(),
+                         cm[:, lo:hi].contiguous(), cfg, T, m)
+            out.append((T.clone(), m.clone()))
+        carries[name] = out
+    torch.cuda.synchronize()
+    for kernel in ("kernel", "ring"):
+        for (Tk, mk), (Tp, mp) in zip(carries[kernel], carries["plain"]):
+            assert torch.equal(Tk, Tp) and torch.equal(mk, mp), kernel
+    metas = [m[0].tolist() for _T, m in carries["kernel"]]
+    assert metas[0][0] == 0 and metas[0][4] == d
+    assert metas[1][:2] == [1, d] and metas[1][4] == d + 5
+    assert metas[2][:4] == metas[1][:4] and metas[2][4] == d + 10
+
+
+@pytest.mark.parametrize("n", [1, 5, 9])
+def test_corpus_layout_with_mixed_widths(card, n):
+    """A batch whose histories need different widths, checked under the
+    batch's shared geometry (K=12, S=8: the register route, histories
+    packed by warp, a ragged last block) and under a wider one (K=13:
+    the shared-memory route)."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_return_steps
+
+    model = CASRegister()
+    rng = random.Random(n)
+    steps = []
+    for i in range(n):
+        h = gen_register_history(rng, n_ops=40 + 30 * i,
+                                 n_procs=2 + (i % 9), p_info=0.0)
+        if i % 3 == 2:
+            h = mutate_history(rng, h)
+        steps.append(encode_return_steps(
+            encode_register_history(h, k_slots=12)))
+    r_cap = wgl3.step_bucket(max(s.n_steps for s in steps))
+    arrays = wgl3.stack_steps3(steps, r_cap, card)
+    for K in (12, 13):
+        cfg = wgl3.DenseConfig(k_slots=K, n_states=8,
+                               state_offset=model.state_offset)
+        ln, tg, cm = wk.prepare_colmask(model, cfg, *arrays) if K == 12 \
+            else wk.prepare_colmask(model, cfg, *_widen(arrays, K))
+        row0 = wgl3.init_row(model, cfg)
+        want = wk.sweep_reference(ln, tg, cm, cfg, row0)
+        for where in wk.SLOT_TABLES:
+            got = wk.dense_sweep(ln, tg, cm, cfg, row0, slot_table=where)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (K, where)
+
+
+def _widen(arrays, K: int):
+    """Step arrays (slot_tabs [B,R,K0,4], slot_active [B,R,K0], targets)
+    padded with inactive slots to width K."""
+    tabs, act, tgt = arrays
+    pad = K - tabs.shape[2]
+    tabs = torch.cat([tabs, tabs.new_zeros(tabs.shape[:2] + (pad, 4))], 2)
+    act = torch.cat([act, act.new_zeros(act.shape[:2] + (pad,))], 2)
+    return tabs, act, tgt
+
+
+def test_elle_accumulate_pool_rounds_equal_plain(card):
+    """The tensor-core accumulate on the pool history's real round-0 and
+    round-3 work lists (T=256), exactly equal to the plain version."""
+    import chip_smoke
+    from jepsen_etcd_demo_tpu_torch.ops import cycles_tiled as ct
+
+    rounds = dict(chip_smoke.pool_round_inputs(card))
+    for r in (0, 3):
+        R = rounds[r]
+        nb, T = R.shape[0], R.shape[-1]
+        R_flat, work = R.reshape(nb * nb, T, T), ct.work_list(R)
+        got = ct.tile_accumulate(R_flat, work)
+        want = ct.tile_accumulate_reference(R_flat, work)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), r

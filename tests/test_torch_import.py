@@ -67,10 +67,11 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.cli",
               "jepsen_etcd_demo_tpu_torch.ops.cycles",
               "jepsen_etcd_demo_tpu_torch.ops.cycles_tiled",
-              "jepsen_etcd_demo_tpu_torch.checkers.elle"):
+              "jepsen_etcd_demo_tpu_torch.checkers.elle",
+              "jepsen_etcd_demo_tpu_torch.ops.peak"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
-                "elle_accumulate.cu"):
+                "elle_accumulate.cu", "alu_peak.cu"):
         assert (PKG / "csrc" / src).is_file(), src
 
 

@@ -207,3 +207,40 @@ def test_sweep_over_the_firing_slots_equals_every_slot(k):
     every = pwgl3._sweep(T, allowed, tr, list(range(k)))
     assert torch.equal(pwgl3._sweep(T, allowed, tr, slots), every)
     assert not torch.equal(every, T)
+
+
+@pytest.mark.parametrize("where", [None, "registers", "ring"])
+@pytest.mark.parametrize("k", [6, 12])
+def test_slot_table_choices_run_the_plain_version_on_cpu(k, where):
+    """Each slot_table choice of the sweep wrappers (where the kernel's
+    register route keeps a step's slot table) is the same function: on
+    CPU tensors the whole scan and a resumed window run the plain version,
+    count no launch, and equal the JAX package's XLA kernel."""
+    jcfg, pcfg, jsteps, psteps, r_cap = _batch(k, n=4, seed=700)
+    ref = np.asarray(jwgl3.cached_batch_checker3_packed(JMODEL, jcfg)(
+        *jwgl3.stack_steps3(jsteps, r_cap)))
+    ln, tg, cm = wk.prepare_colmask(
+        PMODEL, pcfg, *pwgl3.stack_steps3(psteps, r_cap, "cpu"))
+    before = dict(wk.launches)
+    row0 = pwgl3.init_row(PMODEL, pcfg)
+    got = wk.dense_sweep(ln, tg, cm, pcfg, row0, slot_table=where)
+    np.testing.assert_array_equal(ref[:, :5], got.numpy())
+    T, meta = wk.start_carry(PMODEL, pcfg, "cpu")
+    T, meta = wk.dense_sweep_resumable(ln[:1], tg[:1], cm[:1], pcfg, T,
+                                       meta, slot_table=where)
+    assert meta[0].tolist()[:4] == [1 - int(ref[0, 0]), int(ref[0, 2]),
+                                    int(ref[0, 3]), int(ref[0, 4])]
+    assert wk.launches == before
+
+
+@pytest.mark.parametrize("where", ["shared", "", 1])
+def test_unknown_slot_table_is_rejected(where):
+    _, pcfg, _, psteps, r_cap = _batch(8, n=2, seed=800)
+    ln, tg, cm = wk.prepare_colmask(
+        PMODEL, pcfg, *pwgl3.stack_steps3(psteps, r_cap, "cpu"))
+    with pytest.raises(ValueError, match="slot_table"):
+        wk.dense_sweep(ln, tg, cm, pcfg, 1, slot_table=where)
+    T, meta = wk.start_carry(PMODEL, pcfg, "cpu")
+    with pytest.raises(ValueError, match="slot_table"):
+        wk.dense_sweep_resumable(ln[:1], tg[:1], cm[:1], pcfg, T, meta,
+                                 slot_table=where)
