@@ -10,7 +10,13 @@ package's baseline and long-history lanes: a 1024-history corpus of
 history of the `bench_long` recipe (68,734 return steps, five windows of
 the resumable sweep) and an invalid mutant of it, a 50k-op history at
 concurrency 16 through the sparse work-list sweep and the dense one, and
-10 independent keys of 1000 ops. First it measures the card's int32 ALU
+10 independent keys of 1000 ops. The general path for histories no
+default dense table holds: the sweep's global tier (tables in device
+memory) against its plain version at 2^24 and 2^26 bits, then
+partitioned histories (1000 and 10,000 ops with indeterminate ops piling
+up, 10,000 ops of huge values, an invalid mutant with its
+sort-checkpoint witness, 10 keys split between the dense launch and the
+sort tiers). First it measures the card's int32 ALU
 peak with the port of bench.py's probe (csrc/alu_peak.cu), the yardstick
 beside the data-sheet rate. The elle list-append check: the JAX
 package's elle lane (10k txns) under the dense, auto and tiled routes,
@@ -52,8 +58,9 @@ from typing import NamedTuple
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("peak", "kernel", "long_kernel", "elle_kernel", "corpus", "single",
-          "long", "sparse", "independent", "elle", "cli")
+PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
+          "corpus", "single", "long", "sparse", "independent", "general",
+          "elle", "cli")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -64,12 +71,33 @@ KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
            "wgl3_sweep[resume]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
            "wgl3_sweep[resume,shared]": (f"{CSRC}/wgl3_sweep.cu",
                                          f"{PALLAS}:366"),
+           "wgl3_sweep[global]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
            "wgl3_sparse": (f"{CSRC}/wgl3_sparse.cu", f"{PALLAS}:610"),
            "elle_accumulate": (f"{CSRC}/elle_accumulate.cu",
                                "jepsen_etcd_demo_tpu/ops/cycles_tiled.py:211")}
+# The general path's histories (cas-register, 10 processes, values 0-4
+# unless said): (a) one partitioned key of 1000 ops (BASELINE.json
+# configs[1]) with at least 10 indeterminate ops and a tight K of 17-20,
+# the first seed from GENERAL_SEED that has them; (b) 10,000 ops at p_info
+# 0.001, seed 1 (configs[3] under partitions), under a 240 s budget; (c)
+# 10,000 ops writing values 0..99,999 (unpacked sort keys); (d) invalid
+# mutants of (a); (e) 10 keys x 1000 ops (configs[2]), keys 7-9 past the
+# dense budget.
+GENERAL_OPS, GENERAL_P_INFO, GENERAL_SEED = 1_000, 0.016, 0x6E0
+STRESS_OPS, STRESS_P_INFO, STRESS_SEED, STRESS_BUDGET_S = 10_000, 0.001, 1, 240
+HUGE_VALUES, HUGE_SEED = 100_000, 0xC0
+# Geometries (S, K) of the global tier's check: 2^24 and 2^26 bits.
+GLOBAL_GEOMS = ((8, 21), (8, 23))
+# (d)'s mutant dies within WITNESS_LAG steps past a sort chunk boundary,
+# so its witness replays a short window from the sort checkpoint.
+WITNESS_LAG = 4
 # Sizes of the long paths (the bench_long recipe and the sparse lane).
 LONG_OPS, SPARSE_OPS = 100_000, 50_000
 LONG_DEAD_AFTER = 40_000     # the long mutant dies past this return step
+# Steps of the 50k history's first window over which phase `sparse` holds
+# the sparse kernel and the dense shared-memory route against their plain
+# versions (a quarter of a full window: the plain runs set the time).
+SPARSE_CHECK_STEPS = 4096
 # The elle pool history: one weak component of ~12,000 txns, past
 # elle_dense_max_nodes, so the auto route takes the tiled closure.
 POOL_TXNS, POOL_SEED = 12_000, 0xA11E
@@ -289,14 +317,14 @@ def last(chain):
 
 
 def window_record(name, model, cfg, rs, dev, sparse, thresh, launches,
-                  reps):
-    """The first full window of the long route (long_window() steps of rs)
-    through the resumable kernel and its plain version on the card, from
-    a fresh carry: exactly equal table and meta; times and bound:
-    (record, Bound)."""
+                  reps, window: int | None = None):
+    """The first window of the long route (`window` steps of rs, by
+    default a full long_window()) through the resumable kernel and its
+    plain version on the card, from a fresh carry: exactly equal table and
+    meta; times and bound: (record, Bound)."""
     from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 
-    window = wk.long_window()
+    window = window or wk.long_window()
     tg, cm = wk.prepare_steps(rs, model, cfg, dev, 0, window)
     T0, m0 = wk.start_carry(model, cfg, dev, sparse)
     kernel, plain = sweeps(sparse, thresh)
@@ -571,6 +599,90 @@ def phase_long_kernel(dev) -> None:
           "chains": rows})
 
 
+def wide_history(S: int, K: int, n_ops: int, seed: int):
+    """Return steps at mask width K of the first history (seeds seed,
+    seed+1, ...) whose pending ops fill all K slots (10 processes,
+    indeterminate writes piling up), values within S states, cut after
+    the first step with K pending ops plus as many again."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (
+        SlotOverflow, encode_register_history, encode_return_steps)
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_register_history
+
+    # About K - 8 of the write and cas completions (60% of the ops) are
+    # indeterminate.
+    p_info = (K - 8) / (0.6 * n_ops)
+    for i in range(500):
+        h = gen_register_history(random.Random(seed + i), n_ops=n_ops,
+                                 n_procs=10, value_range=S - 1,
+                                 p_info=p_info)
+        try:
+            enc = encode_register_history(h, k_slots=K)
+        except SlotOverflow:
+            continue
+        if enc.max_pending == K:
+            rs = encode_return_steps(enc)
+            full = int(rs.slot_active.sum(1).argmax())
+            n = min(rs.n_steps, 2 * full + 1)
+            return type(rs)(rs.slot_tabs[:n], rs.slot_active[:n],
+                            rs.targets[:n], n, rs.n_ops, K, rs.max_pending,
+                            rs.max_value)
+    raise AssertionError(f"no history fills K={K}")
+
+
+def phase_general_kernel(dev, kernels, global_rec) -> None:
+    """The resumable sweep's global tier (tables past 2^20 bits in device
+    memory) against its plain version on the card, exactly equal table and
+    meta, at 2^24 and 2^26 bits (S=8, K=21 and K=23), one window over the
+    return steps of a history whose pending ops fill every slot."""
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import build, wgl3, wgl3_kernels as wk
+
+    model = CASRegister()
+    blocks = build.load("wgl3_sweep").wgl3_sweep_global_blocks
+    blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    blocks.restype = ctypes.c_int
+    rows = []
+    for S, K in GLOBAL_GEOMS:
+        cfg = wgl3.DenseConfig(k_slots=K, n_states=S,
+                               state_offset=model.state_offset)
+        rs = wide_history(S, K, 700, 0x61B0 + K)
+        tg, cm = wk.prepare_steps(rs, model, cfg, dev)
+        carry = wk.start_carry(model, cfg, dev)
+
+        def run(sweep):
+            return last(wk.window_sweep(sweep, tg, cm, cfg,
+                                        tuple(x.clone() for x in carry),
+                                        rs.n_steps))
+
+        ms, (Tk, mk) = cuda_ms(lambda: run(wk.dense_sweep_global), 2)
+        plain_ms, (Tp, mp) = cuda_ms(lambda: run(wk.resumable_reference), 1,
+                                     warm=False)
+        err = max(int((Tk.long() - Tp.long()).abs().max().item()),
+                  int((mk.long() - mp.long()).abs().max().item()))
+        assert err == 0, (S, K, mk.tolist(), mp.tolist())
+        fired = sorted({int(j) for j in torch.nonzero(
+            (cm != 0).any(2).any(0).any(0)).flatten().tolist()})
+        assert fired == list(range(K)), (S, K, fired)
+        m = mk[0].tolist()
+        ln = torch.tensor([rs.n_steps], dtype=torch.int32, device=dev)
+        b = bound(cfg, (ln, tg, cm), [m[1]], 1, True)
+        rows.append({"S": S, "K": K, "bits": S << K,
+                     "blocks": blocks(S, K), "steps": rs.n_steps,
+                     "dead_step": m[1], "max_frontier": m[2],
+                     "configs_explored": m[3], "kernel_ms": ms,
+                     "us_per_step": ms * 1e3 / rs.n_steps,
+                     "plain_ms": plain_ms, "bound_ms": b.ms,
+                     "bound_by": b.by})
+        if K == GLOBAL_GEOMS[-1][1]:
+            # The kernels line keeps the top of the envelope; its launches
+            # are the general phase's main-path count (0 until it runs).
+            global_rec["pair"] = (record("wgl3_sweep[global]", 0, err, ms,
+                                         plain_ms, b), b)
+    if "pair" in global_rec:
+        kernels.append(global_rec["pair"])
+    emit({"phase": "general_kernel_vs_plain", "ok": True, "geometries": rows})
+
+
 def invalid_mutant(h, seed: int):
     """The first mutant of h (seeds seed, seed+1, ...) the host oracle
     finds not linearizable."""
@@ -827,7 +939,7 @@ def phase_sparse(dev, kernels) -> None:
     through Linearizable twice: under sparse_mode=2 on the sparse kernel,
     then under the default limits on the resumable dense kernel (its
     shared-memory route); the verdict fields agree. Each kernel is held
-    against its plain version on the first full window."""
+    against its plain version on the first SPARSE_CHECK_STEPS steps."""
     from dataclasses import replace
 
     from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
@@ -864,10 +976,12 @@ def phase_sparse(dev, kernels) -> None:
     nb = cfg.n_words // 128
     assert not register_route(cfg)
     rec, b = window_record("wgl3_sparse", model, cfg, rs, dev, True, nb,
-                           runs[2][2]["sparse_sweep_resumable"], reps=2)
+                           runs[2][2]["sparse_sweep_resumable"], reps=2,
+                           window=SPARSE_CHECK_STEPS)
     drec, db = window_record("wgl3_sweep[resume,shared]", model, cfg, rs,
                              dev, False, 0,
-                             runs[0][2]["dense_sweep_resumable"], reps=2)
+                             runs[0][2]["dense_sweep_resumable"], reps=2,
+                             window=SPARSE_CHECK_STEPS)
     (sparse_res, sparse_s, sparse_counts) = runs[2]
     (dense_res, dense_s, dense_counts) = runs[0]
     assert sparse_counts["sparse_sweep_resumable"] > 0, sparse_counts
@@ -889,6 +1003,7 @@ def phase_sparse(dev, kernels) -> None:
                       **stats[0]},
           "max_frontier": dense_res["max_frontier"],
           "configs_explored": dense_res["configs_explored"],
+          "check_steps": SPARSE_CHECK_STEPS,
           "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"],
           "dense_window_kernel_ms": drec["ms"],
           "dense_window_plain_ms": drec["plain_ms"]})
@@ -925,6 +1040,239 @@ def phase_independent(dev) -> None:
           "invalid_keys": sorted(k for k, r in got["results"].items()
                                  if r["valid"] is False),
           "check_s": check_s})
+
+
+def partitioned_history(n_ops: int, p_info: float, seed: int, k_lo: int,
+                        k_hi: int, min_info: int):
+    """(history, seed) of the first history from `seed` at `p_info` with at
+    least `min_info` indeterminate ops and a tight K in [k_lo, k_hi]."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_register_history
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_register_history
+
+    for i in range(200):
+        h = gen_register_history(random.Random(seed + i), n_ops=n_ops,
+                                 n_procs=10, p_info=p_info)
+        enc = encode_register_history(h, k_slots=64)
+        if (sum(op.type == "info" for op in h) >= min_info
+                and k_lo <= wgl3.tight_k_slots(enc) <= k_hi):
+            return h, seed + i
+    raise AssertionError(f"no history with tight K in {k_lo}..{k_hi}")
+
+
+def general_check(lin, h, **extra):
+    """One check through `lin` on the card with the launch counters and
+    the sort search's work (wgl2.stats) reset just before it: a row of
+    what phase `general` prints, and the result."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl2, wgl3, wgl3_kernels as wk
+
+    t0 = time.perf_counter()
+    enc = lin.encode(h)
+    encode_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wk.reset_launches()
+    wgl2.reset_stats()
+    t0 = time.perf_counter()
+    res = lin.check({}, h, extra.pop("opts", None))
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    sort = {f: {"steps": n, "s": sec, "s_per_step": sec / max(1, n)}
+            for f, (n, sec) in sorted(wgl2.stats.items())}
+    row = {"ops": sum(op.type == "invoke" for op in h),
+           "info": sum(op.type == "info" for op in h),
+           "events": enc.n_events, "max_pending": enc.max_pending,
+           "tight_k": wgl3.tight_k_slots(enc),
+           "sort_k": wgl2.sort_k_slots(enc), "encode_s": encode_s,
+           "check_s": check_s, "valid": res["valid"],
+           "kernel": res.get("kernel", res.get("backend")),
+           "f_cap": res.get("f_cap"), "escalations": res.get("escalations"),
+           "max_frontier": res.get("max_frontier"),
+           "dead_step": res.get("dead_step"), "launches": dict(wk.launches),
+           "sort_steps": sort, **extra}
+    return row, res, enc
+
+
+def dense_rung(model, enc, dev):
+    """The general path's dense-chunked rung run directly on a history:
+    the resumable sweep under the chunked budget at the sort width."""
+    from jepsen_etcd_demo_tpu_torch import plan
+    from jepsen_etcd_demo_tpu_torch.ops import wgl2, wgl3
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits
+
+    k = wgl2.sort_k_slots(enc)
+    cfg = wgl3.dense_config(model, k, enc.max_value,
+                            budget=limits().dense_cell_budget_chunked)
+    t0 = time.perf_counter()
+    out = plan.dispatch_long(encode_return_steps(reslot_events(enc, k)),
+                             model, cfg, dev)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_general(dev, global_rec) -> None:
+    """The general path on the card at full size, through Linearizable,
+    IndependentChecker and check_batch_encoded_auto (histories a-e of
+    GENERAL_OPS..): verdicts held against the dense-chunked rung run
+    directly or the single-key path, the mutant's witness from the
+    sort-checkpoint rung, the global tier's launches on the main path."""
+    from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
+                                                     Linearizable)
+    from jepsen_etcd_demo_tpu_torch.checkers import witness
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl2, wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_register_history,
+                                                       interleave_keyed,
+                                                       mutate_history)
+
+    model = CASRegister()
+    lin = Linearizable(model, device=dev)
+    lin.check({}, gen_register_history(random.Random(5), n_ops=300,
+                                       n_procs=10, p_info=0.03))  # warm-up
+
+    def done(name: str, row: dict) -> None:
+        emit({"phase": f"general_{name}", "ok": True, **row})
+
+    # (a) one partitioned key; the ladder against the dense rung directly.
+    h_a, seed_a = partitioned_history(GENERAL_OPS, GENERAL_P_INFO,
+                                      GENERAL_SEED, 17, 20, 10)
+    row, res, enc_a = general_check(lin, h_a, seed=seed_a)
+    direct = dense_rung(model, enc_a, dev)
+    assert res["valid"] is True and direct["valid"] is True, (res, direct)
+    assert res["dead_step"] == direct["dead_step"], (res, direct)
+    row["dense_rung"] = {k: direct[k] for k in (
+        "valid", "dead_step", "max_frontier", "configs_explored", "kernel",
+        "seconds")}
+    done("a", row)
+    global_launches = row["launches"]["dense_sweep_global"]
+
+    # (d) invalid mutants of (a): the first whose dense rung dies within
+    # WITNESS_LAG steps after a sort chunk boundary past the first, so the
+    # sort checkpoint is not the start and its replay window is short.
+    for i in range(400):
+        h_d = mutate_history(random.Random(0xD0 + i), h_a)
+        d_direct = dense_rung(model, lin.encode(h_d), dev)
+        if d_direct["valid"] is False \
+                and d_direct["dead_step"] >= wgl2.DEFAULT_CHUNK \
+                and d_direct["dead_step"] % wgl2.DEFAULT_CHUNK < WITNESS_LAG:
+            break
+    else:
+        raise AssertionError("no mutant of (a) dies just past a chunk")
+    with tempfile.TemporaryDirectory() as store:
+        row, res, enc_d = general_check(lin, h_d, seed=0xD0 + i,
+                                        opts={"store_dir": store})
+        w_lin = json.loads((Path(store) / res["witness_file"]).read_text())
+    assert res["valid"] is False, res
+    assert res["dead_step"] == d_direct["dead_step"], (res, d_direct)
+    # Linearizable's witness ladder reaches the sort-checkpoint rung only
+    # when the windowed rung finds no dense table; this history has one,
+    # so the rung runs here on the ladder's own death checkpoint.
+    ladder = wk.check_encoded_general(enc_d, model, device=dev)
+    t0 = time.perf_counter()
+    w = witness.reconstruct_witness_from_sort_checkpoint(
+        enc_d, model, lin.model.prepare_history(h_d),
+        checkpoint=ladder.get("death_checkpoint"),
+        dead_step=res["dead_step"], device=dev)
+    w_s = time.perf_counter() - t0
+    assert w is not None and w.get("witness") != "skipped", w
+    assert w["dead_step"] == res["dead_step"], (w["dead_step"], res)
+    if res.get("failed_op"):
+        assert w["op"] == res["failed_op"], (w["op"], res["failed_op"])
+    row["dense_rung_dead_step"] = d_direct["dead_step"]
+    row["witness"] = {
+        "linearizable": (res.get("witness_detail") if res.get("witness") ==
+                         "skipped" else "windowed" if "window_start_step"
+                         in w_lin else "full"),
+        "sort_checkpoint": {"op": w["op"], "seconds": w_s,
+                            "window_start_step": w["window_start_step"],
+                            "from_checkpoint": "death_checkpoint" in ladder,
+                            "ladder_kernel": ladder["kernel"]}}
+    done("d", row)
+    global_launches += row["launches"]["dense_sweep_global"]
+
+    # (b) configs[3]'s length under partitions, with a time budget.
+    h_b = gen_register_history(random.Random(STRESS_SEED), n_ops=STRESS_OPS,
+                               n_procs=10, p_info=STRESS_P_INFO)
+    row, res, enc_b = general_check(lin, h_b)
+    assert res["valid"] is not False, res
+    t0 = time.perf_counter()
+    wgl2.reset_stats()
+    ladder = wk.check_encoded_general(enc_b, model, device=dev,
+                                      time_budget_s=STRESS_BUDGET_S)
+    torch.cuda.synchronize()
+    assert ladder["valid"] is not False, ladder
+    row["ladder"] = {"check_s": time.perf_counter() - t0,
+                     "valid": ladder["valid"], "kernel": ladder["kernel"],
+                     "f_cap": ladder.get("f_cap"),
+                     "escalations": ladder.get("escalations"),
+                     "max_frontier": ladder.get("max_frontier"),
+                     "sort_steps": {f: {"steps": n, "s": sec,
+                                        "s_per_step": sec / max(1, n)}
+                                    for f, (n, sec)
+                                    in sorted(wgl2.stats.items())}}
+    done("b", row)
+
+    # (c) huge values: S > 32, no dense rung, unpacked sort keys.
+    h_c = gen_register_history(random.Random(HUGE_SEED), n_ops=STRESS_OPS,
+                               n_procs=10, p_info=STRESS_P_INFO,
+                               value_range=HUGE_VALUES)
+    row, res, enc_c = general_check(lin, h_c)
+    k_c = wgl2.sort_k_slots(enc_c)
+    assert not wgl2.packable(model, wgl2.make_config(model, k_c, 4,
+                                                     enc_c.max_value))
+    assert wgl3.dense_config(model, wgl3.tight_k_slots(enc_c),
+                             enc_c.max_value) is None
+    assert res["valid"] in (True, False), res
+    done("c", row)
+
+    # (e) 10 keys x 1000 ops, keys 7-9 past the dense budget.
+    rng = random.Random(0xE0)
+    per_key = [gen_register_history(rng, n_ops=1000, n_procs=10,
+                                    p_info=0.002) for _ in range(7)]
+    for j in range(3):
+        per_key.append(partitioned_history(1000, 0.012,
+                                           GENERAL_SEED + 100 * (j + 1),
+                                           18, 20, 6)[0])
+    ops = interleave_keyed(per_key)
+    encs = [lin.encode(h) for h in per_key]
+    wk.reset_launches()
+    t0 = time.perf_counter()
+    batch, kernel = wk.check_batch_encoded_auto(encs, model, dev)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_counts = dict(wk.launches)
+    global_launches += batch_counts["dense_sweep_global"]
+    # The dense half's results carry no kernel name of their own.
+    settled = [r.get("kernel", "wgl3-dense-cuda") for r in batch]
+    assert kernel == "mixed" and batch_counts["dense_sweep"] > 0, \
+        (kernel, batch_counts)
+    assert "wgl3-dense-cuda" in settled and any(
+        t != "wgl3-dense-cuda" for t in settled), settled
+    singles = [lin.check({}, h) for h in per_key]
+    for j, (b_one, one) in enumerate(zip(batch, singles)):
+        assert b_one["valid"] == one["valid"], (j, b_one, one)
+        assert b_one["dead_step"] == one["dead_step"], (j, b_one, one)
+    t0 = time.perf_counter()
+    ind = IndependentChecker(lin).check({}, ops)
+    torch.cuda.synchronize()
+    ind_s = time.perf_counter() - t0
+    for j, one in enumerate(singles):
+        got = ind["results"][str(j)]
+        assert got["valid"] == one["valid"], (j, got, one)
+    done("e", {"keys": len(per_key), "batch_s": batch_s,
+                "batch_launches": batch_counts, "kernel": kernel,
+                "tight_k": [wgl3.tight_k_slots(e) for e in encs],
+                "settled_in": settled,
+                "f_cap": [r.get("f_cap", r.get("table_cells"))
+                          for r in batch],
+                "independent_s": ind_s, "valid": ind["valid"]})
+    assert global_launches > 0, "the general path never ran the global tier"
+    if "pair" in global_rec:
+        global_rec["pair"][0]["launches"] = global_launches
+    emit({"phase": "general", "ok": True,
+          "global_launches": global_launches})
 
 
 def pool_txns(n_txns: int, seed: int, active: int = 3, max_ops: int = 4,
@@ -1346,15 +1694,19 @@ def main() -> int:
     kernels: list[tuple[dict, Bound]] = []
     elle_rec: dict = {}
     peak: dict = {}
+    global_rec: dict = {}
     runs = {"peak": lambda: phase_peak(dev, kernels, peak),
             "kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
+            "general_kernel": lambda: phase_general_kernel(dev, kernels,
+                                                           global_rec),
             "elle_kernel": lambda: phase_elle_kernel(dev, elle_rec),
             "corpus": lambda: phase_corpus(dev, kernels),
             "single": lambda: phase_single(dev, kernels),
             "long": lambda: phase_long(dev, kernels),
             "sparse": lambda: phase_sparse(dev, kernels),
             "independent": lambda: phase_independent(dev),
+            "general": lambda: phase_general(dev, global_rec),
             "elle": lambda: phase_elle(dev, elle_rec),
             "cli": phase_cli}
     for name in PHASES:

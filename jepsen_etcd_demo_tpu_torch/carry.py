@@ -16,6 +16,13 @@ the port's carry, so a long sweep started in JAX finishes in the port
 (``ops/wgl3_kernels.run_chain(..., carry=...)``). ``table_to_numpy``
 pads a port carry back to the JAX layout.
 
+``frontier_from_numpy`` takes a frontier of the JAX package's sort
+search (``ops/wgl2.py``: states i32[F], masks u32[F, W], valid bool[F],
+as in its carry and its death checkpoint) and builds the port's (states
+int32[1, F], masks int64[1, F, W] holding the same uint32 words, valid
+bool[1, F]); ``frontier_to_numpy`` is the way back, so the two searches'
+frontiers compare bit for bit.
+
 ``tiles_from_numpy`` takes the JAX package's tiled closure grid
 (``ops/cycles_tiled.closure_tiled``'s f32[nb, nb, T, T], as numpy) of an
 n-node graph and builds the port's grid, which has the same layout;
@@ -71,6 +78,34 @@ def table_to_numpy(T: torch.Tensor, meta: torch.Tensor, cfg: DenseConfig
     table = np.zeros((1, _padded_rows(cfg), cfg.n_words), np.uint32)
     table[:, :cfg.n_states] = T.cpu().numpy().view(np.uint32)
     return table, meta.cpu().numpy().astype(np.int32)
+
+
+def frontier_from_numpy(states, masks, valid
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A JAX sort frontier (states i32[F], masks u32[F, W], valid bool[F])
+    -> the port's on the CPU: (int32[1, F], int64[1, F, W], bool[1, F]).
+    Raises when the shapes disagree."""
+    states = np.asarray(states)
+    masks = np.asarray(masks)
+    valid = np.asarray(valid)
+    F = states.shape[0]
+    if states.shape != (F,) or masks.ndim != 2 or masks.shape[0] != F \
+            or valid.shape != (F,):
+        raise ValueError(f"JAX frontier shapes {states.shape}, "
+                         f"{masks.shape}, {valid.shape} do not agree")
+    return (torch.from_numpy(states.astype(np.int32)[None].copy()),
+            torch.from_numpy(masks.astype(np.uint32).astype(np.int64)[None]),
+            torch.from_numpy(valid.astype(bool)[None].copy()))
+
+
+def frontier_to_numpy(states: torch.Tensor, masks: torch.Tensor,
+                      valid: torch.Tensor
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The port's one-history frontier -> the JAX layout: (states i32[F],
+    masks u32[F, W], valid bool[F])."""
+    return (states[0].cpu().numpy().astype(np.int32),
+            masks[0].cpu().numpy().astype(np.uint32),
+            valid[0].cpu().numpy().astype(bool))
 
 
 def tiles_from_numpy(grid, n: int) -> torch.Tensor:

@@ -5,9 +5,12 @@ each key's history is checked on its own. With a Linearizable sub-checker
 and more than one key, every key's history is encoded and all of them are
 checked together: in ONE launch of the dense sweep (the key axis is the
 batch axis), or, when a key is longer than one scan, one key after another
-through the long sweep under the keys' shared geometry. A batched result
-settles a key only when it is valid: an invalid or unknown key is checked
-again on its own, which builds its counterexample witness.
+through the long sweep under the keys' shared geometry. When no dense
+table serves every key, all of them go through the batched sort tiers of
+the general path instead. A batched result settles a key only when it is
+valid: an invalid or unknown key is checked again on its own, which
+builds its counterexample witness; a key the tiers left "unknown" starts
+its own ladder past the capacities they proved too small (f_cap_floor).
 """
 
 from __future__ import annotations
@@ -60,11 +63,14 @@ class IndependentChecker(Checker):
             batched = _batched_linearizable(self.sub_checker, keyed)
         results: dict[Any, dict] = {}
         for k in sorted(keyed, key=str):
-            if batched.get(k, {}).get("valid") is True:
-                results[k] = batched[k]
-            else:
-                results[k] = self.sub_checker.check(
-                    test, keyed[k], {**(opts or {}), "key": k})
+            pre = batched.get(k, {})
+            if pre.get("valid") is True:
+                results[k] = pre
+                continue
+            sub_opts = {**(opts or {}), "key": k}
+            if pre.get("f_cap_floor"):
+                sub_opts["f_cap_floor"] = pre["f_cap_floor"]
+            results[k] = self.sub_checker.check(test, keyed[k], sub_opts)
         valid = merge_valid([r.get("valid") for r in results.values()])
         return {"valid": valid, "key_count": len(keyed),
                 "results": {str(k): v for k, v in results.items()}}
@@ -72,16 +78,34 @@ class IndependentChecker(Checker):
 
 def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]]
                           ) -> dict[Any, dict]:
-    """All keys checked together when one table geometry serves them; {}
-    otherwise (each key then takes the single-history path)."""
+    """All keys checked together: through the dense route when one table
+    geometry serves them, else through the general path's batched sort
+    tiers, where a key the tiers cannot settle gets an "unknown" entry
+    with the f_cap_floor its own ladder starts from."""
     from ..ops import wgl3, wgl3_kernels
 
     encs = {k: lin.encode(h) for k, h in keyed.items()}
     tight = max(wgl3.tight_k_slots(e) for e in encs.values())
     max_value = max(e.max_value for e in encs.values())
-    if wgl3.dense_config(lin.model, tight, max_value) is None:
-        return {}
     keys = list(encs)
+    if wgl3.dense_config(lin.model, tight, max_value) is None:
+        slots: list = [None] * len(keys)
+        overflowed, _too_long, top = wgl3_kernels._batch_general(
+            [encs[k] for k in keys], list(range(len(keys))), lin.model,
+            slots, set(), f_cap=lin.f_cap, device=lin.device)
+        out = {keys[i]: {"valid": "unknown", "f_cap_floor":
+                         wgl3_kernels.LADDER_SEED_FACTOR * top}
+               for i in overflowed}
+        for k, one in zip(keys, slots):
+            if one is not None:
+                out[k] = {"valid": one["valid"],
+                          "backend": f"torch-{lin.device.type}-batched",
+                          "op_count": one["op_count"],
+                          "dead_step": one["dead_step"],
+                          "max_frontier": one["max_frontier"],
+                          "overflow": one["overflow"],
+                          "f_cap": one["f_cap"]}
+        return out
     batch, _kernel = wgl3_kernels.check_batch_encoded_auto(
         [encs[k] for k in keys], lin.model, lin.device,
         time_budget_s=lin.time_budget_s)

@@ -5,9 +5,12 @@ The equivalent of ``checker/linearizable {:model (model/cas-register)
 the dense subset-lattice sweep, on the card through the CUDA kernels
 (``device=None`` or ``"cuda"``) or on the host through their plain
 PyTorch versions (``device="cpu"``). A history longer than one scan takes
-the windowed long sweep. Results keep the JAX checker's schema; an
-invalid result names the failed op and carries the counterexample witness
-(checkers/witness.py), written to ``opts["store_dir"]`` when given.
+the windowed long sweep; one that no dense table holds (many pending
+ops, huge values) takes the general path's ladder (the sort search, then
+the dense sweep under the chunked budget, else "unknown"). Results keep
+the JAX checker's schema; an invalid result names the failed op and
+carries the counterexample witness (checkers/witness.py), written to
+``opts["store_dir"]`` when given.
 """
 
 from __future__ import annotations
@@ -34,12 +37,14 @@ def _skipped_witness(dead_step: int, *errors: BaseException) -> dict:
 
 class Linearizable(Checker):
     def __init__(self, model: Model | str = "cas-register", device=None,
-                 time_budget_s: float | None = None):
+                 time_budget_s: float | None = None, f_cap: int = 256):
         self.model = get_model(model) if isinstance(model, str) else model
         self.device = resolve_device(device)
-        # Wall-clock bound on a long (windowed) sweep; expiry yields the
-        # tri-state "unknown".
+        # Wall-clock bound on a long (windowed) sweep and on the general
+        # path's ladder; expiry yields the tri-state "unknown".
         self.time_budget_s = time_budget_s
+        # First frontier capacity of the general path's sort search.
+        self.f_cap = f_cap
 
     @property
     def backend(self) -> str:
@@ -70,14 +75,21 @@ class Linearizable(Checker):
         enc = self._encode_translated(history)
         if enc.n_events == 0:
             return {"valid": True, "op_count": 0, "backend": self.backend}
-        res = self._check_device(enc)
+        # f_cap_floor: the independent checker's batched sort tiers may
+        # have proven smaller capacities overflow; the ladder starts past.
+        res = self._check_device(
+            enc, f_cap_floor=int((opts or {}).get("f_cap_floor", 0)))
         if res["valid"] is False:
             self._explain(res, enc, history, opts)
         return res
 
-    def _check_device(self, enc: EncodedHistory) -> dict[str, Any]:
-        from ..ops import wgl3_kernels
+    def _check_device(self, enc: EncodedHistory,
+                      f_cap_floor: int = 0) -> dict[str, Any]:
+        from ..ops import wgl3, wgl3_kernels
 
+        if wgl3.dense_config(self.model, wgl3.tight_k_slots(enc),
+                             enc.max_value) is None:
+            return self._check_general(enc, f_cap_floor)
         results, _kernel = wgl3_kernels.check_batch_encoded_auto(
             [enc], self.model, self.device,
             time_budget_s=self.time_budget_s)
@@ -93,6 +105,29 @@ class Linearizable(Checker):
             res["error"] = out["error"]
         return res
 
+    def _check_general(self, enc: EncodedHistory,
+                       f_cap_floor: int) -> dict[str, Any]:
+        """The general path (wgl3_kernels.check_encoded_general)."""
+        from ..ops import wgl3_kernels
+
+        out = wgl3_kernels.check_encoded_general(
+            enc, self.model, f_cap=max(self.f_cap, f_cap_floor),
+            time_budget_s=self.time_budget_s, device=self.device)
+        res = {"valid": out["valid"],
+               "backend": f"torch-{self.device.type}",
+               "op_count": out["op_count"],
+               "dead_step": out["dead_step"],
+               "max_frontier": out["max_frontier"],
+               # An exhausted ladder carries overflow and the error; every
+               # exact rung reports no overflow.
+               "overflow": out.get("overflow", False),
+               "f_cap": out["f_cap"],
+               "escalations": out["escalations"]}
+        for extra in ("kernel", "error", "death_checkpoint"):
+            if extra in out:
+                res[extra] = out[extra]
+        return res
+
     def _explain(self, res: dict, enc: EncodedHistory,
                  history: Sequence[Op], opts: dict | None) -> None:
         """Counterexample extraction: name the unexplainable op in the
@@ -102,15 +137,20 @@ class Linearizable(Checker):
           1. full replay from the start (complete lineage);
           2. past its effort cap: recover the frontier near dead_step with
              the dense sweep and replay only a window;
-          3. if that fails too, an explicit "skipped" witness carrying
-             each rung's failure. (The JAX package's rung between 2 and
-             3, a replay from the sort search's death checkpoint, needs
-             the sort ladder, ROADMAP A-5.)"""
+          3. where no dense table holds the history (or the death lies
+             in the first window), a replay from the sort search's
+             frontier at the start of the chunk it died in;
+          4. if that fails too, an explicit "skipped" witness carrying
+             each rung's failure."""
         from .witness import (WITNESS_WINDOW_STEPS, WitnessEffortExceeded,
                               reconstruct_witness,
+                              reconstruct_witness_from_sort_checkpoint,
                               reconstruct_witness_windowed, write_witness)
 
         dead_step = int(res.get("dead_step", -1))
+        # The sort search's death checkpoint (host arrays) is consumed here,
+        # whichever rung gives the witness, and never reaches the result.
+        ckpt = res.pop("death_checkpoint", None)
         try:
             w = reconstruct_witness(enc, self.model, history)
         except WitnessEffortExceeded as e:
@@ -124,7 +164,15 @@ class Linearizable(Checker):
                 w = reconstruct_witness_windowed(
                     enc, self.model, dead_step, history,
                     device=self.device)
-            except (ValueError, WitnessEffortExceeded) as e2:
+            except ValueError as e2:
+                try:
+                    w = reconstruct_witness_from_sort_checkpoint(
+                        enc, self.model, history,
+                        time_budget_s=self.time_budget_s, checkpoint=ckpt,
+                        dead_step=dead_step, device=self.device)
+                except (WitnessEffortExceeded, MemoryError) as e3:
+                    w = _skipped_witness(dead_step, e, e2, e3)
+            except WitnessEffortExceeded as e2:
                 w = _skipped_witness(dead_step, e, e2)
         if w is None:
             return

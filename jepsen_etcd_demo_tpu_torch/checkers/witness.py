@@ -11,8 +11,11 @@ search with parent tracking up to the death point:
 
 A long history's full replay can exceed the effort cap; then the dense
 sweep recovers the exact frontier WITNESS_WINDOW_STEPS return steps
-before the death point (ops/wgl3.recover_table3, on the card) and only
-that window is replayed (`reconstruct_witness_windowed`).
+before the death point (ops/wgl3.recover_table3, on the card, under the
+chunked cell budget) and only that window is replayed
+(`reconstruct_witness_windowed`). Where no such table exists, the sort
+search's frontier at the start of the chunk it died in seeds the replay
+(`reconstruct_witness_from_sort_checkpoint`).
 
 Artifacts: `linear.json` (machine-readable) and `linear.svg` (rendering),
 `linear-<key>.{json,svg}` under the independent-keys checker.
@@ -162,15 +165,18 @@ def reconstruct_witness_windowed(enc: EncodedHistory, model: Model,
     before it is linearizable by the sweep's own verdict
     (window_start_step records where it starts).
 
-    Raises ValueError when the history is not dense-feasible and
+    Raises ValueError when no table under the chunked cell budget
+    (dense_cell_budget_chunked) holds the history and
     WitnessEffortExceeded when the window's replay exceeds the cap."""
     from ..ops import wgl3
     from ..ops.encode import encode_return_steps, reslot_events
+    from ..ops.limits import limits
 
     if effort_cap is None:
         effort_cap = MAX_WITNESS_EVENTS
     k = wgl3.tight_k_slots(enc)
-    cfg = wgl3.dense_config(model, k, enc.max_value)
+    cfg = wgl3.dense_config(model, k, enc.max_value,
+                            budget=limits().dense_cell_budget_chunked)
     if cfg is None:
         raise ValueError(
             f"dense frontier recovery infeasible: max_pending="
@@ -195,6 +201,67 @@ def reconstruct_witness_windowed(enc: EncodedHistory, model: Model,
             f"maximal_linearization covers the final window only "
             f"(from return step {s0}); the prefix before it is "
             f"machine-verified linearizable by the dense kernel")
+    return w
+
+
+def reconstruct_witness_from_sort_checkpoint(
+        enc: EncodedHistory, model: Model,
+        history: Sequence[Op] | None = None,
+        effort_cap: int | None = None,
+        time_budget_s: float | None = None,
+        checkpoint: tuple | None = None,
+        dead_step: int = -1, device=None) -> Optional[dict[str, Any]]:
+    """The witness of a history no dense table holds: the lineage replay
+    starts from the sort search's exact frontier at the start of the chunk
+    it died in, so at most one chunk (wgl2.DEFAULT_CHUNK return steps) is
+    replayed.
+
+    `checkpoint` is the (states, masks, valid, step) the search recorded
+    (ops/wgl2.check_steps_resumable keep_death_checkpoint). Without one
+    the search runs again here on `device` (None = cuda), unless
+    `dead_step` says the death lies in the first chunk, where the
+    checkpoint would be the empty prefix. Returns None when that search
+    finds the history linearizable; raises WitnessEffortExceeded when the
+    replay exceeds the cap or would start at step 0, and MemoryError when
+    the search does not fit."""
+    from ..ops import wgl2
+    from ..ops.encode import encode_return_steps, reslot_events
+
+    if effort_cap is None:
+        effort_cap = MAX_WITNESS_EVENTS
+    tight = wgl2.sort_k_slots(enc)
+    enc_r = reslot_events(enc, tight) if enc.k_slots != tight else enc
+    if checkpoint is None:
+        if 0 <= dead_step < wgl2.DEFAULT_CHUNK:
+            raise WitnessEffortExceeded(0, 0)
+        out = wgl2.check_steps_resumable(
+            encode_return_steps(enc_r), model, f_cap_max=1 << 20,
+            keep_death_checkpoint=True, time_budget_s=time_budget_s,
+            device=device)
+        if out["valid"]:
+            return None
+        checkpoint = out["death_checkpoint"]
+    states, masks, valid, s0 = checkpoint
+    if s0 == 0:
+        # The replay from here would repeat the full one that blew its cap.
+        raise WitnessEffortExceeded(0, 0)
+    configs = wgl2.checkpoint_configs(states, masks, valid)
+    events = np.asarray(enc_r.events[: enc_r.n_events])
+    ret_pos = np.nonzero(events[:, 0] == EV_RETURN)[0]
+    e0 = int(ret_pos[s0 - 1]) + 1
+    slots, slot_event = slots_at_event(enc_r, e0)
+    frontier = {(int(s), int(m)): () for s, m in configs}
+    src = _sources_fn(history, model)
+    w = _replay(enc_r, model, e0, frontier, slots, slot_event, src,
+                effort_cap)
+    if w is not None:
+        w["window_start_step"] = s0
+        w["window_start_event"] = e0
+        w["note"] = (
+            f"maximal_linearization covers the final window only (from "
+            f"return step {s0}, the sort kernel's exact checkpoint "
+            f"nearest the death); the prefix before it is "
+            f"machine-verified linearizable by the sort kernel")
     return w
 
 

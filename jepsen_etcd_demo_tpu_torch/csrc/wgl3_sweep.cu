@@ -8,7 +8,10 @@
 //                              table and metadata carried in and out.
 // All three compute the same function per history, and so does this
 // kernel: it runs a history's return-step scan with the reachability
-// table held on chip.
+// table held on chip. The third also sweeps the general path's
+// dense-chunked tables (2^20 < S * 2^K <= 2^26 bits), which no block's
+// shared memory holds: the global tier below keeps those in device
+// memory, where they stay in the 50 MB L2.
 //
 // Layout (ops/wgl3_kernels.py prepares it):
 //   ln   int32[B]          real (non-pad) return steps of each history
@@ -58,7 +61,19 @@
 //     j >= 5 that have a transition, a barrier before each; the count is
 //     taken during the sweep (the last sweep changes nothing) and summed
 //     with one shared atomic per warp (wgl3_table.cuh).
-// Both routes iterate only the destinations a slot has a transition to
+//   * Global (tables past 2^20 bits, one history a launch): a
+//     cooperative grid of up to 128 blocks sweeps the table in place in
+//     device memory, each block owning a contiguous slice of the word
+//     columns of every row. Slots 0..4 run inside a thread's own words,
+//     slots whose word pairs stay inside a slice behind a block barrier,
+//     and slots that cross slices behind a grid barrier
+//     (cg::this_grid().sync(); slots run in increasing order, so every
+//     slot after the first crossing one crosses too). The fixpoint flag,
+//     the count and the survival flag are reduced in global memory, in
+//     three rotating places each, so none is cleared while it is read.
+//     The table is read and written with ld/st.cg (L2, not the SM's own
+//     L1), the only level all SMs see alike.
+// The routes iterate only the destinations a slot has a transition to
 // (usually one: the model is deterministic), and both read their step
 // inputs from a ring in shared memory that cp.async fills kRing steps
 // ahead, so no step waits on device memory.
@@ -68,9 +83,14 @@
 // on the shared route) and integer issue, not device memory (a history's
 // inputs are read once). A lone history runs on one SM; a corpus of B
 // histories fills the 132 SMs. Splitting one large table over a cluster
-// of blocks is not done here.
+// of blocks is not done here. The global tier's steps wait on L2
+// latency and on its grid barriers, one per crossing slot and sweep.
+
+#include <cooperative_groups.h>
 
 #include "wgl3_table.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -456,6 +476,271 @@ sweep_block_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
     for (int i = tid; i < S * W; i += nt) Tb[i] = T[i];
 }
 
+// -- the global-memory tier --------------------------------------------------
+
+constexpr int kGlobalThreads = 256;
+constexpr int kGlobalMaxBlocks = 128;
+constexpr int kGlobalMinSlice = 64;  // words of a row per block, at least
+
+__device__ __forceinline__ uint32_t gather_global(const uint32_t* T, int W,
+                                                  int w, uint32_t m) {
+  uint32_t acc = 0;
+  while (m) {
+    const int s = __ffs(m) - 1;
+    m &= m - 1;
+    acc |= __ldcg(T + (size_t)s * W + w);
+  }
+  return acc;
+}
+
+// fire_in_word_nz and fire_across_nz of wgl3_table.cuh on a table in
+// device memory.
+__device__ __forceinline__ int fire_in_word_global(uint32_t* T,
+                                                   const uint32_t* cms, int K,
+                                                   int W, int w, int j, int t,
+                                                   uint32_t nz) {
+  const uint32_t a = wgl3::allowed_word(w, t) & wgl3::lo_mask(j);
+  if (!a) return 0;
+  const int sh = 1 << j;
+  int changed = 0;
+  while (nz) {
+    const int d = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const uint32_t m = cms[d * K + j];
+    const uint32_t fired = gather_global(T, W, w, m) & a;
+    uint32_t* p = T + (size_t)d * W + w;
+    const uint32_t old = __ldcg(p);
+    const uint32_t nv = old | (fired << sh);
+    if (nv != old) {
+      __stcg(p, nv);
+      changed = 1;
+    }
+  }
+  return changed;
+}
+
+__device__ __forceinline__ int fire_across_global(uint32_t* T,
+                                                  const uint32_t* cms, int K,
+                                                  int W, int ws, int wd, int j,
+                                                  int t, uint32_t nz) {
+  const uint32_t a = wgl3::allowed_word(ws, t);
+  if (!a) return 0;
+  int changed = 0;
+  while (nz) {
+    const int d = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const uint32_t m = cms[d * K + j];
+    const uint32_t fired = gather_global(T, W, ws, m) & a;
+    uint32_t* p = T + (size_t)d * W + wd;
+    const uint32_t old = __ldcg(p);
+    const uint32_t nv = old | fired;
+    if (nv != old) {
+      __stcg(p, nv);
+      changed = 1;
+    }
+  }
+  return changed;
+}
+
+// One window of one history over a table T uint32[S, W] in device memory,
+// updated in place with meta int32[5] (the carry of the resume option).
+// flags int32[9], zero at launch: the fixpoint flag, the count and the
+// survival flag, three rotating places each. Block g owns word columns
+// [g * Wb, (g + 1) * Wb) of every row and the word pairs
+// [g * Wb / 2, (g + 1) * Wb / 2) of each slot j >= 5 (pair i: source ws =
+// i with a zero bit inserted at j - 5, destination ws | 2^(j-5)), which lie
+// in its own slice while 2^(j-5) < Wb.
+__global__ void __launch_bounds__(kGlobalThreads)
+sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
+                    const uint32_t* __restrict__ cm, uint32_t* T, int* meta,
+                    int* flags, int R, int S, int K) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ uint32_t ring[];  // [kRing][SK + 1]
+  __shared__ unsigned int bcnt;
+  const int W = 1 << (K - 5);
+  const int SK = S * K;
+  const int G = gridDim.x;
+  const int Wb = W / G;
+  const int g = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int w0 = g * Wb;
+  const int p0 = g * (Wb >> 1);
+  int* chg = flags;
+  unsigned int* cnt = (unsigned int*)flags + 3;
+  int* alv = flags + 6;
+
+  int dead = meta[0];
+  int dead_step = meta[1];
+  int maxf = meta[2];
+  unsigned int cfgs = (unsigned int)meta[3];  // wraps as an i32 accumulator
+  const int offset = meta[4];
+  if (tid == 0) bcnt = 0u;
+
+  const int steps = ln[0];
+  const int live_steps = dead ? 0 : steps;
+  for (int q = 0; q < wgl3::kRing; ++q) {
+    if (q < live_steps)
+      wgl3::stage_step(ring + q * (SK + 1), tg, cm, q, SK, tid, nt);
+    wgl3::cp_async_commit();
+  }
+
+  int sweep = 0;
+  for (int r = 0; r < live_steps; ++r) {
+    wgl3::cp_async_wait<wgl3::kRing - 1>();
+    __syncthreads();  // step r's inputs are in place
+    uint32_t* slot = ring + (r % wgl3::kRing) * (SK + 1);
+    const int t = (int)slot[0];
+    const uint32_t* cms = slot + 1;
+    const uint32_t nz = wgl3::slot_destinations(cms, S, K, lane);
+    uint32_t nzin[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) nzin[j] = __shfl_sync(kFull, nz, j);
+    unsigned int c;
+    while (true) {
+      int changed = 0;
+      c = 0u;
+      // This thread's words under slots 0..4, counted first: in the sweep
+      // that changes nothing, c is its share of the converged table.
+      for (int w = w0 + tid; w < w0 + Wb; w += nt) {
+        for (int s = 0; s < S; ++s) c += __popc(__ldcg(T + (size_t)s * W + w));
+#pragma unroll
+        for (int j = 0; j < 5; ++j)
+          if (nzin[j])
+            changed |= fire_in_word_global(T, cms, K, W, w, j, t, nzin[j]);
+      }
+      for (int j = 5; j < K; ++j) {
+        const uint32_t nzj = __shfl_sync(kFull, nz, j);
+        if (!nzj) continue;  // grid-uniform: every block has the step
+        const int sh = j - 5;
+        const int dlt = 1 << sh;
+        if (dlt < Wb)
+          __syncthreads();
+        else
+          grid.sync();
+        for (int i = p0 + tid; i < p0 + (Wb >> 1); i += nt) {
+          const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
+          changed |= fire_across_global(T, cms, K, W, ws, ws | dlt, j, t, nzj);
+        }
+      }
+      if (__any_sync(kFull, changed) && lane == 0)
+        atomicOr(chg + sweep % 3, 1);
+      grid.sync();
+      const int again = __ldcg(chg + sweep % 3);
+      // Read by every thread after the barrier two sweeps back: clear it.
+      if (g == 0 && tid == 0) atomicExch(chg + (sweep + 2) % 3, 0);
+      ++sweep;
+      if (!again) break;
+    }
+    c = __reduce_add_sync(kFull, c);
+    if (lane == 0) atomicAdd(&bcnt, c);
+
+    // Prune at t: keep the configs that fired t, bit t cleared; every
+    // word is rewritten, so a table with no survivor is all zero.
+    int alive = 0;
+    if (t < 5) {
+      const int sh = 1 << t;
+      const uint32_t lo = wgl3::lo_mask(t);
+      for (int w = w0 + tid; w < w0 + Wb; w += nt)
+        for (int s = 0; s < S; ++s) {
+          uint32_t* p = T + (size_t)s * W + w;
+          const uint32_t v = (__ldcg(p) >> sh) & lo;
+          __stcg(p, v);
+          alive |= v != 0u;
+        }
+    } else {
+      const int sh = t - 5;
+      const int dlt = 1 << sh;
+      for (int i = p0 + tid; i < p0 + (Wb >> 1); i += nt) {
+        const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
+        for (int s = 0; s < S; ++s) {
+          uint32_t* row = T + (size_t)s * W;
+          const uint32_t v = __ldcg(row + (ws | dlt));
+          __stcg(row + ws, v);
+          __stcg(row + (ws | dlt), 0u);
+          alive |= v != 0u;
+        }
+      }
+    }
+    alive = __syncthreads_or(alive);
+    if (tid == 0) {
+      atomicAdd(cnt + r % 3, bcnt);
+      bcnt = 0u;
+      if (alive) atomicOr(alv + r % 3, 1);
+    }
+    grid.sync();
+    const int n = (int)__ldcg((const int*)cnt + r % 3);
+    const int survived = __ldcg(alv + r % 3);
+    if (g == 0 && tid == 0) {
+      atomicExch(cnt + (r + 2) % 3, 0u);
+      atomicExch(alv + (r + 2) % 3, 0);
+    }
+    // Frontier size of the converged table (banked configs included).
+    maxf = n > maxf ? n : maxf;
+    cfgs += (unsigned int)n;
+    if (!survived) {  // an empty table ends the search
+      dead = 1;
+      dead_step = offset + r;
+      break;
+    }
+    __syncthreads();  // the block is done with this ring slot: refill it
+    if (r + wgl3::kRing < live_steps)
+      wgl3::stage_step(slot, tg, cm, r + wgl3::kRing, SK, tid, nt);
+    wgl3::cp_async_commit();
+  }
+  wgl3::cp_async_wait<0>();
+  grid.sync();  // every block has read meta
+  if (g == 0 && tid == 0) {
+    meta[0] = dead;
+    meta[1] = dead_step;
+    meta[2] = maxf;
+    meta[3] = (int)cfgs;
+    meta[4] = offset + steps;
+  }
+}
+
+// Blocks of the global tier's grid for a table of 2^(K-5) words a row:
+// the co-resident blocks, at most kGlobalMaxBlocks, rounded down to a power
+// of two and leaving each block at least kGlobalMinSlice words of a row.
+cudaError_t global_blocks(int S, int K, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = (size_t)wgl3::kRing * (S * K + 1) * sizeof(uint32_t);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sweep_global_kernel, kGlobalThreads, smem);
+  if (e != cudaSuccess) return e;
+  int cap = per_sm * sms;
+  if (cap > kGlobalMaxBlocks) cap = kGlobalMaxBlocks;
+  const int by_slice = (1 << (K - 5)) / kGlobalMinSlice;
+  if (cap > by_slice) cap = by_slice;
+  int g = 1;
+  while (g * 2 <= cap) g *= 2;
+  *blocks = cap >= 1 ? g : 0;
+  return cudaSuccess;
+}
+
+int launch_global(const void* ln, const void* tg, const void* cm, void* T,
+                  void* meta, void* flags, int R, int S, int K,
+                  cudaStream_t st) {
+  if (S < 1 || S > 32 || K < 11 || K > 31 || !T || !meta || !flags)
+    return (int)cudaErrorInvalidValue;
+  int G = 0;
+  cudaError_t e = global_blocks(S, K, &G);
+  if (e != cudaSuccess) return (int)e;
+  if (G < 1) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)wgl3::kRing * (S * K + 1) * sizeof(uint32_t);
+  void* args[] = {(void*)&ln, (void*)&tg,   (void*)&cm, (void*)&T, (void*)&meta,
+                  (void*)&flags, (void*)&R, (void*)&S,  (void*)&K};
+  e = cudaLaunchCooperativeKernel((const void*)sweep_global_kernel, dim3(G),
+                                  dim3(kGlobalThreads), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // -- launch geometry ---------------------------------------------------------
 
 int padded_states(int S) {
@@ -587,6 +872,23 @@ int wgl3_sweep_launch_slot_table(const void* ln, const void* tg,
                                  int row0, int slot_table, void* stream) {
   return launch(ln, tg, cm, out, Tio, meta, B, R, S, K, row0, slot_table,
                 (cudaStream_t)stream);
+}
+
+// One window of one history through the global tier, in place: T
+// uint32[S, 2^(K-5)] and meta int32[5] in device memory, flags int32[9]
+// zeroed by the caller, ln int32[1], tg int32[R], cm uint32[R, S, K].
+// Returns cudaGetLastError() after the cooperative launch (0 = launched).
+int wgl3_sweep_global_launch(const void* ln, const void* tg, const void* cm,
+                             void* T, void* meta, void* flags, int R, int S,
+                             int K, void* stream) {
+  return launch_global(ln, tg, cm, T, meta, flags, R, S, K,
+                       (cudaStream_t)stream);
+}
+
+// The global tier's grid for (S, K): its blocks, or -1 on a CUDA error.
+int wgl3_sweep_global_blocks(int S, int K) {
+  int G = 0;
+  return global_blocks(S, K, &G) == cudaSuccess ? G : -1;
 }
 
 // 1 when (S, K) takes the register route, 0 for the shared-memory route.

@@ -26,6 +26,13 @@ class Model(abc.ABC):
         history's values."""
         return max(int(max_value), int(self.init_state())) + self.state_offset
 
+    def pack_bits(self, max_value: int) -> int:
+        """Bits that hold any reachable state (after state_offset), given
+        the largest value in the history; 0 = states are not bounded."""
+        if not self.packable_states:
+            return 0
+        return max(1, self.state_bound(max_value).bit_length())
+
     def prepare_history(self, history):
         """Model-level op translation before encoding; identity here."""
         return history

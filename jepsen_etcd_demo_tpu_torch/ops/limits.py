@@ -1,5 +1,5 @@
-"""The kernel limits the dense check and the elle closure read, with their
-defaults (the JAX package's).
+"""The kernel limits the dense check, the sort ladder and the elle closure
+read, with their defaults (the JAX package's).
 
 A frozen dataclass and nothing more: no environment overrides and no
 tuned profiles. ``set_limits`` swaps the active instance (tests use it to
@@ -17,6 +17,12 @@ class KernelLimits:
     # history. Every admitted table is at most 2^20 bits = 128 KiB, which
     # is what lets the CUDA kernels hold it in one block's shared memory.
     dense_cell_budget: int = 1 << 20
+    # Larger table budget of the general path's dense-chunked rung
+    # (wgl3_kernels.check_encoded_general): a history past the sort
+    # ladder's capacity is swept window by window over a table of up to
+    # 2^26 bits = 8 MiB, which csrc/wgl3_sweep.cu keeps in device memory
+    # (its global tier) past 2^20 bits.
+    dense_cell_budget_chunked: int = 1 << 26
     # Longest return-step scan one launch of the batch sweep takes;
     # longer histories take the resumable sweep, one window at a time.
     long_scan_max: int = 32768
@@ -38,8 +44,16 @@ class KernelLimits:
     # Live-block share, in percent, above which a closure round of the
     # sparse sweep runs dense instead (auto mode).
     sparse_density_threshold_pct: int = 25
+    # Sort rows (f_cap * (k_slots + 1) keys) per launch of the batched sort
+    # search (wgl3_kernels._batch_general chunks its batch under it).
+    sort_row_budget: int = 1 << 21
+    # Frontier canonicalisation of the sort search (ops/canon.py): 0 =
+    # auto (on for the resumable sort ladder, off for table sweeps), 1 =
+    # off, 2 = force.
+    dedup_mode: int = 0
     # Stacked-batch element budget: a batched launch of the elle closure
-    # stacks at most this many f32 cells (chunks above it).
+    # stacks at most this many f32 cells, a batched sort search at most
+    # this many slot-table rows (both chunk above it).
     stack_element_budget: int = 1 << 26
 
     # -- the elle closure engine (ops/cycles.py, ops/cycles_tiled.py) --

@@ -74,14 +74,17 @@ class DenseConfig:
         return self.max_rounds or self.k_slots
 
 
-def dense_config(model: Model, k_slots: int,
-                 max_value: int) -> DenseConfig | None:
+def dense_config(model: Model, k_slots: int, max_value: int,
+                 budget: int | None = None) -> DenseConfig | None:
     """DenseConfig for this (model, history), or None when infeasible.
 
     Feasible iff the model's states are bounded by the history's values,
     S <= 32, K >= 5 (32 configs per word) and S * 2^K fits the cell
-    budget. S is rounded up to a multiple of 4."""
-    budget = limits().dense_cell_budget
+    budget: `budget`, by default limits().dense_cell_budget (the general
+    path's dense-chunked rung passes dense_cell_budget_chunked). S is
+    rounded up to a multiple of 4."""
+    if budget is None:
+        budget = limits().dense_cell_budget
     if not model.packable_states or k_slots < 5:
         return None
     s = model.state_bound(max_value) + 1

@@ -1,13 +1,17 @@
 """The sweeps on the card: column-mask prep, the CUDA kernels' wrappers,
 and the routes that send encoded histories to them.
 
-Three wrappers, one per kernel entry:
+Four wrappers, one per kernel entry:
   * `dense_sweep`: csrc/wgl3_sweep.cu over a batch, whole scan per
     history (replaces the JAX package's per-history and grouped Pallas
     sweeps);
   * `dense_sweep_resumable`: the same kernel over one window of a long
     history, its table and metadata carried in and out (replaces the
     resumable Pallas sweep);
+  * `dense_sweep_global`: the same kernel's global tier, one window of
+    one history whose table (past 2^20 bits, up to 2^26) stays in device
+    memory: the general path's dense-chunked rung (the resumable Pallas
+    sweep at the tables the JAX package's chunked budget admits);
   * `sparse_sweep_resumable`: csrc/wgl3_sparse.cu, the window sweep whose
     closure rounds visit only the live 128-word blocks (replaces the
     sparse work-list Pallas sweep).
@@ -42,7 +46,13 @@ from .wgl3_sparse import MAX_BLOCKS, sparse_plan
 # where it launches its kernel and nowhere else. chip_smoke.py reads them
 # to show which kernels the main path ran on.
 launches = {"dense_sweep": 0, "dense_sweep_resumable": 0,
-            "sparse_sweep_resumable": 0}
+            "dense_sweep_global": 0, "sparse_sweep_resumable": 0}
+
+# Table sizes in bits (S * 2^K): up to SHARED_TABLE_BITS a table lives in
+# one block's shared memory (128 KiB); past it, up to GLOBAL_TABLE_BITS
+# (8 MiB), in device memory through the global tier.
+SHARED_TABLE_BITS = 1 << 20
+GLOBAL_TABLE_BITS = 1 << 26
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -50,6 +60,8 @@ _ARGTYPES = {
     "wgl3_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ln, tg, cm, Tio, meta, B, R, S, K, rounds, thresh, stream
     "wgl3_sparse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ln, tg, cm, T, meta, flags, R, S, K, stream
+    "wgl3_sweep_global": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 # Where csrc/wgl3_sweep.cu's register route keeps a step's slot table, as
 # its wgl3_sweep_launch_slot_table takes it: None leaves it to the
@@ -125,20 +137,34 @@ def sparse_reference(ln, tg, cm, cfg: wgl3.DenseConfig, T: torch.Tensor,
     return wgl3.words32(T64), m64.to(torch.int32)
 
 
-def check_geometry(cfg: wgl3.DenseConfig) -> None:
+def global_tier(cfg: wgl3.DenseConfig) -> bool:
+    """The table is past one block's shared memory: the resumable sweep
+    takes the global tier (dense_sweep_global)."""
+    return cfg.n_states * cfg.n_masks > SHARED_TABLE_BITS
+
+
+def check_geometry(cfg: wgl3.DenseConfig, tier: str = "shared") -> None:
     """Raise on a geometry the kernels do not take: K >= 5, S <= 32 and a
-    table of at most 2^20 bits (128 KiB of shared memory)."""
+    table of at most 2^20 bits (128 KiB of shared memory), or with tier
+    "global" more than 2^20 and at most 2^26 bits."""
     K, S = cfg.k_slots, cfg.n_states
-    if K < 5 or S < 1 or S > 32 or S * (1 << K) > (1 << 20):
+    bits = S * (1 << K)
+    lo, hi = ((SHARED_TABLE_BITS, GLOBAL_TABLE_BITS) if tier == "global"
+              else (0, SHARED_TABLE_BITS))
+    if K < 5 or S < 1 or S > 32 or not lo < bits <= hi:
         raise ValueError(
-            f"wgl3_sweep takes 5 <= K, S <= 32 and S * 2^K <= 2^20; got "
-            f"K={K}, S={S}")
+            f"wgl3_sweep ({tier}) takes 5 <= K, S <= 32 and "
+            f"{lo} < S * 2^K <= {hi}; got K={K}, S={S}")
     wgl3._require_converging_cap(cfg)
 
 
 def _launch(name: str, *args) -> None:
     from . import build
 
+    if name == "wgl3_sweep_global":
+        build.launcher("wgl3_sweep", _ARGTYPES[name],
+                       "wgl3_sweep_global_launch")(*args)
+        return
     build.launcher(name, _ARGTYPES[name])(*args)
 
 
@@ -245,6 +271,32 @@ def dense_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
                       cm.data_ptr(), None, T.data_ptr(), meta.data_ptr(), B,
                       R, cfg.n_states, cfg.k_slots, 0, _stream(cm))
     launches["dense_sweep_resumable"] += 1
+    return T, meta
+
+
+def dense_sweep_global(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
+                       cfg: wgl3.DenseConfig, T: torch.Tensor,
+                       meta: torch.Tensor):
+    """One window of the dense sweep of ONE history whose table is past
+    2^20 bits: as dense_sweep_resumable with B = 1.
+
+    On CUDA tensors this launches csrc/wgl3_sweep.cu's global tier (a
+    cooperative grid over the table in device memory), which updates T and
+    meta in place; on CPU tensors it runs the plain version."""
+    check_geometry(cfg, "global")
+    if meta.shape[-1] != 5 or tg.shape[0] != 1:
+        raise ValueError(f"the global tier takes one history and 5 meta "
+                         f"slots; got tg {tuple(tg.shape)}, meta "
+                         f"{tuple(meta.shape)}")
+    if _device_of(cfg, ln, tg, cm, (T, meta)) == "cpu":
+        return resumable_reference(ln, tg, cm, cfg, T, meta)
+    flags = torch.zeros(9, dtype=torch.int32, device=cm.device)
+    with torch.cuda.device(cm.device):
+        _launch("wgl3_sweep_global", ln.data_ptr(), tg.data_ptr(),
+                cm.data_ptr(), T.data_ptr(), meta.data_ptr(),
+                flags.data_ptr(), tg.shape[1], cfg.n_states, cfg.k_slots,
+                _stream(cm))
+    launches["dense_sweep_global"] += 1
     return T, meta
 
 
@@ -378,6 +430,8 @@ def run_chain(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
                              f"{cfg.k_slots} under the active limits")
         sweep = partial(sparse_sweep_resumable,
                         thresh_blocks=plan.thresh_blocks)
+    elif global_tier(cfg):
+        sweep = dense_sweep_global
     else:
         sweep = dense_sweep_resumable
     if carry is None:
@@ -476,6 +530,185 @@ def run_long_dense(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
     return one
 
 
+# -- the general path --------------------------------------------------------
+
+def check_encoded_general(enc: EncodedHistory, model: Model,
+                          f_cap: int = 256, f_cap_max: int | None = None,
+                          time_budget_s: float | None = None,
+                          device=None) -> dict:
+    """The exact ladder for a history outside the dense budget (wide
+    pending sets, huge values), on `device` (None = cuda):
+
+      1. the resumable sort search (ops/wgl2.py), its capacity escalated
+         4x per overflow up to f_cap_max;
+      2. when the frontier outgrows that, or the time runs out there, the
+         dense sweep under the chunked budget (dense_cell_budget_chunked,
+         up to 2^26 bits: the global tier on the card), window by window
+         with the remaining time;
+      3. when no such table exists, the tri-state "unknown".
+
+    One clock runs for the whole ladder. The result's "kernel" names the
+    rung that decided it; an invalid verdict of the sort rung carries the
+    search's death checkpoint for the witness."""
+    from ..plan import dispatch_long
+    from . import wgl2
+    from .encode import encode_return_steps, reslot_events
+
+    t0 = time.monotonic()
+    tight = wgl2.sort_k_slots(enc)
+    lim = limits()
+    cfg_dense = wgl3.dense_config(model, tight, enc.max_value,
+                                  budget=lim.dense_cell_budget_chunked)
+    if f_cap_max is None:
+        f_cap_max = 1 << 20
+        if cfg_dense is not None:
+            # Past cells / (K + 1) live configs a sort round sorts more
+            # keys than the dense sweep touches bits: stop the ladder there.
+            cells = cfg_dense.n_states * cfg_dense.n_masks
+            f_cap_max = min(f_cap_max, max(f_cap, cells // (tight + 1)))
+
+    def dense_chunked(enc):
+        remaining = (None if time_budget_s is None else
+                     time_budget_s - (time.monotonic() - t0))
+        if remaining is not None and remaining <= 0.5:
+            return {"valid": "unknown", "survived": False, "overflow": True,
+                    "dead_step": -1, "max_frontier": -1,
+                    "configs_explored": -1, "op_count": enc.n_ops,
+                    "f_cap": cfg_dense.n_states * cfg_dense.n_masks,
+                    "escalations": 0, "kernel": "exhausted",
+                    "error": f"sort ladder consumed the whole "
+                             f"{time_budget_s:.0f}s budget; dense-chunked "
+                             f"rung not started"}
+        if enc.k_slots != tight:
+            enc = reslot_events(enc, tight)
+        out = dispatch_long(encode_return_steps(enc), model, cfg_dense,
+                            device, time_budget_s=remaining)
+        out["op_count"] = enc.n_ops
+        out["f_cap"] = cfg_dense.n_states * cfg_dense.n_masks
+        out["escalations"] = 0
+        return out
+
+    try:
+        out = wgl2.check_encoded_resumable(enc, model, f_cap=f_cap,
+                                           f_cap_max=f_cap_max,
+                                           time_budget_s=time_budget_s,
+                                           keep_death_checkpoint=True,
+                                           device=device)
+        out["kernel"] = "wgl2-sort-resumable"
+        return out
+    except MemoryError as e:
+        if cfg_dense is None:
+            return {"valid": "unknown", "survived": False, "overflow": True,
+                    "dead_step": -1, "max_frontier": -1,
+                    "op_count": enc.n_ops, "f_cap": f_cap_max,
+                    "escalations": -1, "kernel": "exhausted",
+                    "error": str(e)}
+        return dense_chunked(enc)
+
+
+# First capacity of a history's ladder after the batched tiers proved
+# `top` overflows: LADDER_SEED_FACTOR * top (check_batch_encoded_auto and
+# the independent checker's f_cap_floor).
+LADDER_SEED_FACTOR = 4
+
+# Capacities of the batched sort tiers of a batch's general histories:
+# typical frontiers are tiny, and a history that overflows runs again in
+# the next tier's batch.
+GENERAL_TIERS = (64, 256, 1024)
+
+
+def ladder_tail(encs, model: Model, results: list, kernels: set,
+                too_long: Sequence[int],
+                overflow_seeds: Sequence[tuple[int, int]], device=None,
+                time_budget_s: float | None = None) -> None:
+    """The general histories left after the batched tiers, one ladder
+    each: too-long ones from the start, tier-proven overflows from the
+    capacity `seed` past every tier."""
+    for i in too_long:
+        one = check_encoded_general(encs[i], model, device=device,
+                                    time_budget_s=time_budget_s)
+        results[i] = one
+        kernels.add(one["kernel"])
+    for i, seed in overflow_seeds:
+        one = check_encoded_general(encs[i], model, f_cap=seed,
+                                    device=device,
+                                    time_budget_s=time_budget_s)
+        results[i] = one
+        kernels.add(one["kernel"])
+
+
+def _batch_general(encs, idxs, model: Model, results: list, kernels: set,
+                   f_cap: int = 256, device=None
+                   ) -> tuple[list[int], list[int], int]:
+    """The batched pass over a batch's general histories `idxs`: the sort
+    search of all of them in lockstep (ops/wgl2.check_steps_batch) at the
+    capacities of GENERAL_TIERS (and `f_cap` when larger), each tier
+    taking the histories the one before left "unknown". Exact results
+    land in `results`; returns (overflowed, too_long, top tier):
+    `overflowed` stayed unknown at every tier, `too_long` are longer than
+    one scan (long_scan_max) and were not run. Launches are chunked so
+    batch * f_cap * (k + 1) stays within sort_row_budget and the stacked
+    slot tables within stack_element_budget."""
+    from . import wgl2
+    from .encode import encode_return_steps, reslot_events
+
+    dev = resolve_device(device)
+    sub = [(i, encs[i]) for i in idxs]
+    k = max(wgl2.sort_k_slots(e) for _, e in sub)
+    max_value = max(e.max_value for _, e in sub)
+    lim = limits()
+    steps, too_long = [], []
+    for i, e in sub:
+        rs = encode_return_steps(reslot_events(e, k) if e.k_slots != k
+                                 else e)
+        if rs.n_steps > lim.long_scan_max:
+            too_long.append(i)
+        else:
+            steps.append((i, rs))
+    if not steps:
+        return [], too_long, GENERAL_TIERS[-1]
+    r_cap = min(wgl3.step_bucket(max(1, max(s.n_steps for _, s in steps))),
+                lim.long_scan_max)
+    cap_max = max(GENERAL_TIERS[0], lim.sort_row_budget // (k + 1))
+    tiers = sorted({min(t, cap_max) for t in (*GENERAL_TIERS, f_cap)})
+
+    def launch(tier_steps, tier_cap):
+        cfg = wgl2.make_config(model, k, tier_cap, max_value)
+        chunk = max(1, min(
+            lim.sort_row_budget // (tier_cap * (k + 1)),
+            lim.stack_element_budget // max(1, r_cap * (k + 1))))
+        overflowed = []
+        for c0 in range(0, len(tier_steps), chunk):
+            part = tier_steps[c0:c0 + chunk]
+            tabs, act, tgt = wgl3.stack_steps3([s for _, s in part], r_cap,
+                                               dev)
+            out = {name: v.cpu().tolist() for name, v in
+                   wgl2.check_steps_batch(tabs, act, tgt, model,
+                                          cfg).items()}
+            for j, (i, s) in enumerate(part):
+                one = {name: out[name][j] for name in out}
+                v = wgl3.verdict(one)
+                if v == "unknown":
+                    overflowed.append((i, s))
+                    continue
+                results[i] = {
+                    "valid": v, "survived": one["survived"],
+                    "overflow": one["overflow"],
+                    "dead_step": one["dead_step"],
+                    "max_frontier": one["max_frontier"], "op_count": s.n_ops,
+                    "f_cap": tier_cap, "escalations": 0,
+                    "kernel": "wgl2-sort-batched"}
+                kernels.add("wgl2-sort-batched")
+        return overflowed
+
+    remaining = steps
+    for tier_cap in tiers:
+        remaining = launch(remaining, tier_cap)
+        if not remaining:
+            break
+    return [i for i, _ in remaining], too_long, tiers[-1]
+
+
 # -- routing ---------------------------------------------------------------
 
 def partition_dense(encs: Sequence[EncodedHistory], model: Model
@@ -494,17 +727,21 @@ def check_batch_encoded_auto(encs: Sequence[EncodedHistory],
                              time_budget_s: float | None = None
                              ) -> tuple[list[dict], str]:
     """Check a batch of encoded histories on `device` (None = cuda);
-    returns (per-history results, kernel name).
+    returns (per-history results, kernel name, "mixed" when the histories
+    split across routes).
 
-    A batch whose bucketed step count fits one scan (long_scan_max) runs
-    in one launch of the dense sweep. A longer one runs its histories one
-    at a time through the long route (run_long_dense), each under the
-    batch's shared geometry; `time_budget_s` bounds each of those.
-    Histories that are not dense-feasible raise NotImplementedError (the
-    sort-ladder general path, ROADMAP A-5).
+    The batch is partitioned by dense feasibility (partition_dense). The
+    dense histories run under one shared geometry: in one launch of the
+    dense sweep when their bucketed step count fits one scan
+    (long_scan_max), else one at a time through the long route
+    (run_long_dense, each bounded by `time_budget_s`). The others take the
+    general path: the batched sort tiers (_batch_general), then a ladder
+    each for what the tiers left (ladder_tail, bounded by
+    `time_budget_s`).
 
-    When `timings` is a dict, each stage synchronizes the device at its
-    end and the dict gets the stage's host-clock seconds under its name."""
+    When `timings` is a dict, each stage of the dense half synchronizes
+    the device at its end and the dict gets the stage's host-clock
+    seconds under its name."""
     dev = resolve_device(device)
     if model is None:
         from ..models import CASRegister
@@ -523,33 +760,48 @@ def check_batch_encoded_auto(encs: Sequence[EncodedHistory],
         timings[stage] = now - t0
         t0 = now
 
-    _dense_idx, general_idx = partition_dense(encs, model)
+    dense_idx, general_idx = partition_dense(encs, model)
+    results: list = [None] * len(encs)
+    kernels: set[str] = set()
+    if dense_idx:
+        sub = [encs[i] for i in dense_idx]
+        try:
+            cfg, steps, r_cap = wgl3.batch_steps3(sub, model)
+        except ValueError:
+            # Each is feasible alone but no one geometry serves them all:
+            # they take the general path.
+            general_idx = sorted(general_idx + dense_idx)
+            dense_idx = []
+        else:
+            lap("batch_steps3")
+            if r_cap > limits().long_scan_max:
+                for i, s in zip(dense_idx, steps):
+                    one = run_long_dense(s, model, cfg, dev, time_budget_s)
+                    results[i] = one
+                    kernels.add(one["kernel"])
+                lap("long_sweep")
+            else:
+                tabs, act, tgt = wgl3.stack_steps3(steps, r_cap, dev)
+                lap("stack_h2d")
+                ln, tg, cm = prepare_colmask(model, cfg, tabs, act, tgt)
+                lap("prepare_colmask")
+                packed = dense_sweep(ln, tg, cm, cfg,
+                                     wgl3.init_row(model, cfg))
+                lap("kernel")
+                batch_out = wgl3.assemble_batch_results(
+                    wgl3.unpack_np(packed.cpu().numpy()), steps, cfg)
+                lap("fetch_assemble")
+                for i, one in zip(dense_idx, batch_out):
+                    results[i] = one
+                kernels.add("wgl3-dense-cuda" if dev.type == "cuda"
+                            else "wgl3-dense-plain")
     if general_idx:
-        raise NotImplementedError(
-            f"{len(general_idx)} histories are not dense-feasible (more "
-            f"pending ops or larger values than a 2^20-cell table holds); "
-            f"the sort-ladder general path is ROADMAP A-5")
-    try:
-        cfg, steps, r_cap = wgl3.batch_steps3(encs, model)
-    except ValueError as e:
-        raise NotImplementedError(
-            f"no shared dense geometry for this batch ({e}); the "
-            f"sort-ladder general path is ROADMAP A-5") from e
-    lap("batch_steps3")
-    if r_cap > limits().long_scan_max:
-        results = [run_long_dense(s, model, cfg, dev, time_budget_s)
-                   for s in steps]
-        lap("long_sweep")
-        kernels = {r["kernel"] for r in results}
-        return results, kernels.pop() if len(kernels) == 1 else "mixed"
-    tabs, act, tgt = wgl3.stack_steps3(steps, r_cap, dev)
-    lap("stack_h2d")
-    ln, tg, cm = prepare_colmask(model, cfg, tabs, act, tgt)
-    lap("prepare_colmask")
-    packed = dense_sweep(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
-    lap("kernel")
-    results = wgl3.assemble_batch_results(
-        wgl3.unpack_np(packed.cpu().numpy()), steps, cfg)
-    lap("fetch_assemble")
-    return results, ("wgl3-dense-cuda" if dev.type == "cuda"
-                     else "wgl3-dense-plain")
+        overflowed, too_long, top = _batch_general(encs, general_idx, model,
+                                                   results, kernels,
+                                                   device=dev)
+        # The tiers proved capacities up to `top` overflow for these: their
+        # ladders start past every dead rung.
+        ladder_tail(encs, model, results, kernels, too_long,
+                    [(i, LADDER_SEED_FACTOR * top) for i in overflowed],
+                    dev, time_budget_s)
+    return results, (kernels.pop() if len(kernels) == 1 else "mixed")

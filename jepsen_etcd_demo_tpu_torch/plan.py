@@ -1,17 +1,21 @@
-"""Routing of the long (windowed) sweeps.
+"""Routing of the long (windowed) sweeps and of the sort ladder's chunks.
 
 `plan_long_sweep` names the family a long history's windows run under on
 a device, and the kernel label its result carries; `dispatch_long` runs
 the history under it. The families:
 
     wgl3-cuda-resumable          csrc/wgl3_sweep.cu with a carry
+    wgl3-cuda-global-resumable   its global tier: a table past 2^20 bits
+                                 (the general path's dense-chunked rung)
     wgl3-cuda-sparse-resumable   csrc/wgl3_sparse.cu
     wgl3-plain-chunk             the plain dense sweep, window by window
     wgl3-plain-sparse-chunk      the plain sparse sweep, window by window
 
 The sparse families are taken where ops/wgl3_kernels.sparse_selected
-holds, on either device. The JAX package's lattice-sharded family waits
-for the multi-device slice (ROADMAP A-11).
+holds, on either device (never past K = 18, where the sparse kernel
+stops). `plan_resumable` names the sort ladder's chunk family. The JAX
+package's lattice-sharded family waits for the multi-device slice
+(ROADMAP A-11).
 """
 
 from __future__ import annotations
@@ -35,12 +39,22 @@ def plan_long_sweep(cfg: wgl3.DenseConfig, device=None) -> LongPlan:
     (None = cuda)."""
     on_card = resolve_device(device).type == "cuda"
     sparse = wk.sparse_selected(cfg)
-    family = ("wgl3-cuda-" if on_card else "wgl3-plain-") \
-        + ("sparse-" if sparse else "") \
+    tier = ("sparse-" if sparse
+            else "global-" if on_card and wk.global_tier(cfg) else "")
+    family = ("wgl3-cuda-" if on_card else "wgl3-plain-") + tier \
         + ("resumable" if on_card else "chunk")
-    label = ("wgl3-dense-cuda" if on_card else "wgl3-dense-plain") \
-        + ("-sparse" if sparse else "") + "-chunked"
+    label = ("wgl3-dense-cuda-" if on_card else "wgl3-dense-plain-") \
+        + tier + "chunked"
     return LongPlan(family=family, label=label, sparse=sparse)
+
+
+def plan_resumable(canon: bool = False) -> str:
+    """The family of the sort ladder's chunks (ops/wgl2.
+    check_steps_resumable), "-canon" when the history's frontier is
+    canonicalised (ops/canon.py); torch ops on either device, as the JAX
+    package's XLA chunks are. The result's "kernel" is
+    "wgl2-sort-resumable" either way."""
+    return "wgl2-chunk" + ("-canon" if canon else "")
 
 
 def dispatch_long(rs, model, cfg: wgl3.DenseConfig, device=None,

@@ -36,7 +36,7 @@ from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
 from jepsen_etcd_demo_tpu_torch.utils import fuzz as pfuzz
 
 from golden import GOLDEN
-from torch_port_util import fields, fuzz_pair, port_ops
+from torch_port_util import fields, fuzz_pair, jax_ops, port_ops
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLD = {name: (hist, expected) for name, hist, expected in GOLDEN}
@@ -123,34 +123,47 @@ def test_empty_history_is_valid():
 
 
 def test_not_dense_feasible_raises_not_implemented():
-    # 30 ops pending at once: K=30 leaves the 2^20-cell dense budget.
+    """30 indeterminate writes pending at once: K=30 leaves the 2^20-cell
+    dense budget, and the general path (the sort ladder, its frontier
+    canonicalised) checks it, as the JAX package's."""
     from jepsen_etcd_demo_tpu_torch.ops.op import Op
 
     h = [Op(type="invoke", f="write", value=1, process=p) for p in range(30)]
-    h += [Op(type="ok", f="write", value=1, process=p) for p in range(30)]
-    with pytest.raises(NotImplementedError, match="A-5"):
-        Linearizable(device="cpu").check({}, h)
+    h += [Op(type="info", f="write", value=1, process=p) for p in range(30)]
+    got = Linearizable(device="cpu").check({}, h)
+    want = JLin().check({}, jax_ops(h))
+    assert got["valid"] is want["valid"] is True
+    assert got["kernel"] == want["kernel"] == "wgl2-sort-resumable"
+    for f in ("max_frontier", "f_cap", "escalations", "dead_step"):
+        assert got[f] == want[f], f
 
 
 def test_history_longer_than_one_scan_raises_not_implemented():
     """Past one scan a dense-feasible history takes the long route (the
-    same result as the one-scan route); only a history that is not
-    dense-feasible still raises, naming the general path."""
+    same result as the one-scan route); one that is not dense-feasible
+    takes the general path, with the JAX package's verdict."""
     _, hp = fuzz_pair(30, n_ops=200, n_procs=4)
     whole = Linearizable(device="cpu").check({}, hp)
     wide = [POp(type="invoke", f="write", value=1, process=100 + p)
             for p in range(30)]
-    wide += [POp(type="ok", f="write", value=1, process=100 + p)
+    wide += [POp(type="info", f="write", value=1, process=100 + p)
              for p in range(30)]
+    # A read of 9, a value no write stores, ends the search right there.
+    wide += [POp(type="invoke", f="read", value=None, process=99),
+             POp(type="ok", f="read", value=9, process=99)]
     prev = set_limits(KernelLimits(long_scan_max=64, long_window_steps=48))
     try:
         got = Linearizable(device="cpu").check({}, hp)
-        with pytest.raises(NotImplementedError, match="A-5"):
-            Linearizable(device="cpu").check({}, wide + hp)
+        general = Linearizable(device="cpu").check({}, wide + hp)
     finally:
         set_limits(prev)
+    want = JLin().check({}, jax_ops(wide + hp))
+    assert general["valid"] is False and general["dead_step"] == 0
     assert fields(got) == fields(whole)
     assert limits().long_scan_max == 32768
+    assert general["kernel"] == "wgl2-sort-resumable"
+    for f in ("valid", "dead_step", "max_frontier", "failed_op", "witness"):
+        assert general.get(f) == want.get(f), f
 
 
 def _write(tmp_path, name, history):

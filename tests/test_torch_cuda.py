@@ -356,3 +356,61 @@ def test_elle_accumulate_pool_rounds_equal_plain(card):
         want = ct.tile_accumulate_reference(R_flat, work)
         torch.cuda.synchronize()
         assert torch.equal(got, want), r
+
+
+@pytest.mark.parametrize("K,S", [(18, 8), (16, 32)])
+def test_global_tier_equals_plain_over_windows(card, K, S):
+    """The global tier (tables past 2^20 bits in device memory) against
+    sweep_plain_carry after every 32-step window, through the long route's
+    window loop."""
+    cfg, _ln, tg, cm = _chain_inputs(K, S, 300 * K + S, card)
+    assert wk.global_tier(cfg)
+    wk.reset_launches()
+    got = _chain(cfg, tg, cm, wk.dense_sweep_global, False)
+    n_launch = wk.launches["dense_sweep_global"]
+    want = _chain(cfg, tg, cm, wk.resumable_reference, False)
+    torch.cuda.synchronize()
+    assert len(got) >= 3 and n_launch == len(got)
+    for (Tk, mk), (Tp, mp) in zip(got, want):
+        assert torch.equal(Tk, Tp) and torch.equal(mk, mp)
+
+
+def test_global_tier_refuses_tables_it_does_not_take(card):
+    """A table past 2^26 bits, or one the shared-memory route takes,
+    raises on the card; nothing falls back to the plain version."""
+    model = CASRegister()
+    for K, S in ((24, 8), (17, 8)):
+        cfg = wgl3.DenseConfig(k_slots=K, n_states=S,
+                               state_offset=model.state_offset)
+        T, meta = wk.start_carry(model, cfg, card)
+        tg = torch.zeros((1, 4), dtype=torch.int32, device=card)
+        cm = torch.zeros((1, 4, S, K), dtype=torch.int32, device=card)
+        ln = torch.tensor([4], dtype=torch.int32, device=card)
+        with pytest.raises(ValueError):
+            wk.dense_sweep_global(ln, tg, cm, cfg, T, meta)
+    cfg = wgl3.DenseConfig(k_slots=24, n_states=8,
+                           state_offset=model.state_offset)
+    with pytest.raises(ValueError):
+        wk.dense_sweep_resumable(ln, tg, torch.zeros(
+            (1, 4, 8, 24), dtype=torch.int32, device=card), cfg,
+            torch.zeros((1, 8, 1 << 19), dtype=torch.int32, device=card),
+            torch.zeros((1, 5), dtype=torch.int32, device=card))
+
+
+def test_general_path_on_card_equals_plain(card):
+    """A history past the dense budget through Linearizable on the card
+    and on the host: the same verdict fields."""
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+
+    for mutate in (False, True):
+        rng = random.Random(0x6E1)
+        h = gen_register_history(rng, n_ops=200, n_procs=10, p_info=0.03)
+        if mutate:
+            h = mutate_history(rng, h)
+        got = Linearizable(device=card).check({}, h)
+        want = Linearizable(device="cpu").check({}, h)
+        for f in ("valid", "dead_step", "max_frontier", "f_cap",
+                  "escalations", "kernel", "failed_op"):
+            if f == "kernel" and str(want.get(f)).startswith("wgl3"):
+                continue
+            assert got.get(f) == want.get(f), (f, got, want)

@@ -68,7 +68,9 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.ops.cycles",
               "jepsen_etcd_demo_tpu_torch.ops.cycles_tiled",
               "jepsen_etcd_demo_tpu_torch.checkers.elle",
-              "jepsen_etcd_demo_tpu_torch.ops.peak"):
+              "jepsen_etcd_demo_tpu_torch.ops.peak",
+              "jepsen_etcd_demo_tpu_torch.ops.wgl2",
+              "jepsen_etcd_demo_tpu_torch.ops.canon"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):

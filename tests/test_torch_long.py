@@ -27,6 +27,7 @@ from jepsen_etcd_demo_tpu.ops import encode as jenc
 from jepsen_etcd_demo_tpu.ops import limits as jlimits
 from jepsen_etcd_demo_tpu.ops import wgl3 as jwgl3
 from jepsen_etcd_demo_tpu.ops import wgl3_pallas as jpal
+from jepsen_etcd_demo_tpu.ops.op import Op as JOp
 from jepsen_etcd_demo_tpu.utils import fuzz as jfuzz
 from jepsen_etcd_demo_tpu_torch import carry, plan
 from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
@@ -484,14 +485,27 @@ def test_dispatch_long_budget_zero_is_unknown(pin):
 
 
 def test_not_dense_feasible_long_history_still_raises(pin):
+    """A long history that is not dense-feasible takes the general path
+    (it no longer raises), with the JAX package's verdict."""
     from jepsen_etcd_demo_tpu_torch.ops.op import Op
 
     pin(port={"long_scan_max": LONG_SCAN})
+    # The sort ladder canonicalises under the default dedup_mode in both
+    # packages (pin's dedup_mode=1 is for the table sweeps).
+    jlimits.set_limits(jlimits.KernelLimits())
     h = [Op(type="invoke", f="write", value=1, process=p) for p in range(30)]
-    h += [Op(type="ok", f="write", value=1, process=p) for p in range(30)]
+    h += [Op(type="info", f="write", value=1, process=p) for p in range(30)]
+    # A read of 9, a value no write stores, ends the search right there.
+    h += [Op(type="invoke", f="read", value=None, process=99),
+          Op(type="ok", f="read", value=9, process=99)]
     h += port_ops(_long_history(44)[0])
-    with pytest.raises(NotImplementedError, match="A-5"):
-        Linearizable(device="cpu").check({}, h)
+    got = Linearizable(device="cpu").check({}, h)
+    want = JLin().check({}, [JOp(**vars(op)) for op in h])
+    for f in ("valid", "dead_step", "max_frontier", "kernel", "failed_op",
+              "witness"):
+        assert got.get(f) == want.get(f), f
+    assert got["kernel"] == "wgl2-sort-resumable"
+    assert got["valid"] is False and got["dead_step"] == 0
 
 
 def test_cli_analyze_long_invalid_history_prints_witness(pin, tmp_path,
