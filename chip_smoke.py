@@ -9,10 +9,12 @@ package's baseline and long-history lanes: a 1024-history corpus of
 150-op histories at concurrency 10, one 10k-op history, the 100k-op
 history of the `bench_long` recipe (68,734 return steps, five windows of
 the resumable sweep) and an invalid mutant of it, a 50k-op history at
-concurrency 16 through the sparse work-list sweep and the dense one, and
+concurrency 16 and a 50k-op history whose frontier spans two of its 16
+blocks, each through the sparse work-list sweep and the dense one, and
 10 independent keys of 1000 ops. The general path for histories no
-default dense table holds: the sweep's global tier (tables in device
-memory) against its plain version at 2^24 and 2^26 bits, then
+default dense table holds: the sweep's global tier (tables split over
+thread-block clusters) against its plain version at every size it takes,
+2^21 to 2^26 bits, then
 partitioned histories (1000 and 10,000 ops with indeterminate ops piling
 up, 10,000 ops of huge values, an invalid mutant with its
 sort-checkpoint witness, 10 keys split between the dense launch and the
@@ -73,6 +75,8 @@ KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
                                          f"{PALLAS}:366"),
            "wgl3_sweep[global]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
            "wgl3_sparse": (f"{CSRC}/wgl3_sparse.cu", f"{PALLAS}:610"),
+           "wgl3_sparse[few-block]": (f"{CSRC}/wgl3_sparse.cu",
+                                      f"{PALLAS}:610"),
            "elle_accumulate": (f"{CSRC}/elle_accumulate.cu",
                                "jepsen_etcd_demo_tpu/ops/cycles_tiled.py:211")}
 # The general path's histories (cas-register, 10 processes, values 0-4
@@ -86,8 +90,9 @@ KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
 GENERAL_OPS, GENERAL_P_INFO, GENERAL_SEED = 1_000, 0.016, 0x6E0
 STRESS_OPS, STRESS_P_INFO, STRESS_SEED, STRESS_BUDGET_S = 10_000, 0.001, 1, 240
 HUGE_VALUES, HUGE_SEED = 100_000, 0xC0
-# Geometries (S, K) of the global tier's check: 2^24 and 2^26 bits.
-GLOBAL_GEOMS = ((8, 21), (8, 23))
+# Geometries (S, K) of the global tier's check: every size it takes,
+# 2^21 to 2^26 bits.
+GLOBAL_GEOMS = ((8, 18), (8, 19), (8, 20), (8, 21), (8, 22), (8, 23))
 # (d)'s mutant dies within WITNESS_LAG steps past a sort chunk boundary,
 # so its witness replays a short window from the sort checkpoint.
 WITNESS_LAG = 4
@@ -98,6 +103,9 @@ LONG_DEAD_AFTER = 40_000     # the long mutant dies past this return step
 # the sparse kernel and the dense shared-memory route against their plain
 # versions (a quarter of a full window: the plain runs set the time).
 SPARSE_CHECK_STEPS = 4096
+# The few-block history (phase sparse): its ops, its timed steps, and its
+# timed steps re-slotted to K=17.
+FEW_OPS, FEW_CHECK_STEPS, FEW_K17_STEPS = 50_000, 1024, 256
 # The elle pool history: one weak component of ~12,000 txns, past
 # elle_dense_max_nodes, so the auto route takes the tiled closure.
 POOL_TXNS, POOL_SEED = 12_000, 0xA11E
@@ -630,17 +638,17 @@ def wide_history(S: int, K: int, n_ops: int, seed: int):
 
 
 def phase_general_kernel(dev, kernels, global_rec) -> None:
-    """The resumable sweep's global tier (tables past 2^20 bits in device
-    memory) against its plain version on the card, exactly equal table and
-    meta, at 2^24 and 2^26 bits (S=8, K=21 and K=23), one window over the
-    return steps of a history whose pending ops fill every slot."""
+    """The resumable sweep's global tier (tables past 2^20 bits, split
+    over the shared memories of a thread-block cluster or of a few) against
+    its plain version on the card, exactly equal table and meta, at every
+    size the tier takes: 2^21 to 2^26 bits (S=8, K=18 to 23), one window
+    over the return steps of a history whose pending ops fill every slot.
+    Each row names the blocks and cluster size the launcher chose
+    (wgl3_kernels.card_global_geometry)."""
     from jepsen_etcd_demo_tpu_torch.models import CASRegister
-    from jepsen_etcd_demo_tpu_torch.ops import build, wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
 
     model = CASRegister()
-    blocks = build.load("wgl3_sweep").wgl3_sweep_global_blocks
-    blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    blocks.restype = ctypes.c_int
     rows = []
     for S, K in GLOBAL_GEOMS:
         cfg = wgl3.DenseConfig(k_slots=K, n_states=S,
@@ -666,8 +674,11 @@ def phase_general_kernel(dev, kernels, global_rec) -> None:
         m = mk[0].tolist()
         ln = torch.tensor([rs.n_steps], dtype=torch.int32, device=dev)
         b = bound(cfg, (ln, tg, cm), [m[1]], 1, True)
-        rows.append({"S": S, "K": K, "bits": S << K,
-                     "blocks": blocks(S, K), "steps": rs.n_steps,
+        blocks, cluster = wk.card_global_geometry(S, K)
+        assert cluster >= 1, (S, K, blocks, cluster)
+        rows.append({"S": S, "K": K, "bits": S << K, "blocks": blocks,
+                     "cluster": cluster, "grid_barrier": blocks > cluster,
+                     "steps": rs.n_steps,
                      "dead_step": m[1], "max_frontier": m[2],
                      "configs_explored": m[3], "kernel_ms": ms,
                      "us_per_step": ms * 1e3 / rs.n_steps,
@@ -934,22 +945,44 @@ def phase_long(dev, kernels) -> None:
                      "check_s": bad_s, "launches": bad_counts}})
 
 
-def phase_sparse(dev, kernels) -> None:
-    """A 50k-op history at concurrency 16 (K=16: 16 blocks of 128 words)
-    through Linearizable twice: under sparse_mode=2 on the sparse kernel,
-    then under the default limits on the resumable dense kernel (its
-    shared-memory route); the verdict fields agree. Each kernel is held
-    against its plain version on the first SPARSE_CHECK_STEPS steps."""
+def few_block_history(n_ops: int, seed: int):
+    """A register history at K=16 whose frontier spans two of the table's
+    16 blocks of 128 words: twelve reads held pending at the start take
+    slots 0..11 while an indeterminate write (slot 12) and three
+    indeterminate cas ops expecting 6, a value no op writes (slots 13-15:
+    they never fire), are invoked; then n_ops ops at concurrency 10 reuse
+    slots 0..11. Configs with bit 12 set lie in block 1, none has bits
+    13-15 set."""
+    from jepsen_etcd_demo_tpu_torch.ops.op import Op
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_register_history
+
+    reads = range(200, 212)
+    dead = [Op(type="invoke", f="cas", value=(6, 6), process=301 + p)
+            for p in range(3)]
+    h = [Op(type="invoke", f="read", value=None, process=p) for p in reads]
+    h += [Op(type="invoke", f="write", value=0, process=300), *dead]
+    h += [Op(type="ok", f="read", value=None, process=p) for p in reads]
+    h += gen_register_history(random.Random(seed), n_ops=n_ops, n_procs=10,
+                              p_info=0.0)
+    h += [Op(type="info", f="write", value=0, process=300)]
+    h += [Op(type="info", f=op.f, value=op.value, process=op.process)
+          for op in dead]
+    return h
+
+
+def sparse_pair(dev, model, h, enc, cfg, rs, steps: int, name: str):
+    """History h through Linearizable twice: under sparse_mode=2 on the
+    sparse kernel, then under the default limits on the resumable dense
+    kernel (its shared-memory route); the verdict fields agree. Each
+    kernel is held against its plain version on the first `steps` steps.
+    Returns the sparse record's pair, the dense one's and the phase line's
+    fields."""
     from dataclasses import replace
 
     from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
-    from jepsen_etcd_demo_tpu_torch.models import CASRegister
     from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
     from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
 
-    model = CASRegister()
-    h, enc, cfg, rs, encode_s = long_setup(model, SPARSE_OPS, 16,
-                                            0x10C0 + SPARSE_OPS)
     assert cfg.k_slots == 16 and rs.n_steps > limits().long_scan_max
     lin = Linearizable(model, device=dev)
     runs, stats = {}, {}
@@ -975,13 +1008,13 @@ def phase_sparse(dev, kernels) -> None:
         set_limits(base)
     nb = cfg.n_words // 128
     assert not register_route(cfg)
-    rec, b = window_record("wgl3_sparse", model, cfg, rs, dev, True, nb,
+    rec, b = window_record(name, model, cfg, rs, dev, True, nb,
                            runs[2][2]["sparse_sweep_resumable"], reps=2,
-                           window=SPARSE_CHECK_STEPS)
+                           window=steps)
     drec, db = window_record("wgl3_sweep[resume,shared]", model, cfg, rs,
                              dev, False, 0,
                              runs[0][2]["dense_sweep_resumable"], reps=2,
-                             window=SPARSE_CHECK_STEPS)
+                             window=steps)
     (sparse_res, sparse_s, sparse_counts) = runs[2]
     (dense_res, dense_s, dense_counts) = runs[0]
     assert sparse_counts["sparse_sweep_resumable"] > 0, sparse_counts
@@ -992,21 +1025,70 @@ def phase_sparse(dev, kernels) -> None:
     assert all(sparse_res[f] == dense_res[f] for f in fields), \
         (sparse_res, dense_res)
     assert sparse_res["valid"] is True
-    kernels += [(rec, b), (drec, db)]
+    line = {"steps": rs.n_steps, "k_slots": cfg.k_slots,
+            "n_states": cfg.n_states, "blocks": nb,
+            "sparse_mode2": {"check_s": sparse_s, "launches": sparse_counts,
+                             **stats[2]},
+            "default": {"check_s": dense_s, "launches": dense_counts,
+                        **stats[0]},
+            "max_frontier": dense_res["max_frontier"],
+            "configs_explored": dense_res["configs_explored"],
+            "check_steps": steps,
+            "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"],
+            "us_per_step": rec["ms"] * 1e3 / steps,
+            "dense_window_kernel_ms": drec["ms"],
+            "dense_window_plain_ms": drec["plain_ms"],
+            "dense_us_per_step": drec["ms"] * 1e3 / steps}
+    return (rec, b), (drec, db), line
+
+
+def phase_sparse(dev, kernels) -> None:
+    """Two long histories at K=16 (16 blocks of 128 words), each through
+    sparse_pair: 50k ops at concurrency 16 (a quarter of the blocks live),
+    and the few-block history (two live blocks). The sparse kernel and the
+    dense shared-memory route are timed on the first SPARSE_CHECK_STEPS
+    and FEW_CHECK_STEPS steps, and on the few-block history's first
+    FEW_K17_STEPS steps at K=17 (two of 32 blocks live), each held against
+    its plain version."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+
+    model = CASRegister()
+    h, enc, cfg, rs, encode_s = long_setup(model, SPARSE_OPS, 16,
+                                            0x10C0 + SPARSE_OPS)
+    sparse, dense, line = sparse_pair(dev, model, h, enc, cfg, rs,
+                                      SPARSE_CHECK_STEPS, "wgl3_sparse")
+    kernels += [sparse, dense]
     emit({"phase": "sparse_50k", "ok": True, "ops": SPARSE_OPS,
-          "steps": rs.n_steps, "k_slots": cfg.k_slots,
-          "n_states": cfg.n_states, "blocks": cfg.n_words // 128,
-          "encode_s": encode_s,
-          "sparse_mode2": {"check_s": sparse_s, "launches": sparse_counts,
-                           **stats[2]},
-          "default": {"check_s": dense_s, "launches": dense_counts,
-                      **stats[0]},
-          "max_frontier": dense_res["max_frontier"],
-          "configs_explored": dense_res["configs_explored"],
-          "check_steps": SPARSE_CHECK_STEPS,
-          "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"],
-          "dense_window_kernel_ms": drec["ms"],
-          "dense_window_plain_ms": drec["plain_ms"]})
+          "encode_s": encode_s, **line})
+    h = few_block_history(FEW_OPS, 0xFE0B)
+    enc = Linearizable(model, device="cpu").encode(h)
+    k = wgl3.tight_k_slots(enc)
+    cfg = wgl3.dense_config(model, k, enc.max_value)
+    rs = encode_return_steps(reslot_events(enc, k))
+    sparse, _dense, line = sparse_pair(dev, model, h, enc, cfg, rs,
+                                       FEW_CHECK_STEPS,
+                                       "wgl3_sparse[few-block]")
+    live = line["sparse_mode2"]["sweep"]["live_tile_ratio"]
+    assert live <= 2 / 16, live
+    kernels.append(sparse)
+    # The same history at K=17 (32 blocks, the widest table of S=8 the
+    # sparse kernel takes): two blocks of 32 live.
+    cfg17 = replace(cfg, k_slots=17)
+    rs17 = encode_return_steps(reslot_events(enc, 17))
+    k17 = {}
+    for name, is_sparse, thresh in (("wgl3_sparse[few-block]", True, 32),
+                                    ("wgl3_sweep[resume,shared]", False, 0)):
+        rec, _ = window_record(name, model, cfg17, rs17, dev, is_sparse,
+                               thresh, 0, reps=2, window=FEW_K17_STEPS)
+        k17[name] = rec["ms"] * 1e3 / FEW_K17_STEPS
+    emit({"phase": "sparse_few_block", "ok": True, "ops": FEW_OPS, **line,
+          "k17_steps": FEW_K17_STEPS, "k17_us_per_step": k17})
 
 
 def phase_independent(dev) -> None:

@@ -1,18 +1,21 @@
 """Command line of the port.
 
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
-        [--workload register|append|txnregister]
-        [-w register|cas-register] [--device cuda|cpu]
+        [-w|--workload register|append|txnregister]
+        [--model register|cas-register] [--device cuda|cpu]
 
 Re-checks a stored history and prints the result as one JSON object. A
 run directory is read through its history.jsonl. The workload comes from
---workload, else from the run directory's test.json ("workload"), else
-register. An append or txnregister history goes through the elle
-list-append or rw-register checker, strict-serializable when test.json
-records "elle_realtime". A register history that is keyed (values are
-(key, value) pairs) goes through the independent-keys checker, a plain
-one through the linearizability checker. Exit code: 0 valid, 1 invalid,
-2 unknown or not checkable by this slice.
+-w/--workload, else from the run directory's test.json ("workload"), else
+register; the model from --model, else from the workload (register is
+checked against cas-register). An append or txnregister history goes
+through the elle list-append or rw-register checker, strict-serializable
+when test.json records "elle_realtime". A register history that is keyed
+(values are (key, value) pairs) goes through the independent-keys
+checker, a plain one through the linearizability checker, under the
+run's search budget (test.json "check_budget_s", 120 s when absent, 0 or
+null for none). Exit code: 0 valid, 1 invalid, 2 unknown or not
+checkable by this slice.
 """
 
 from __future__ import annotations
@@ -26,6 +29,20 @@ from .ops.op import INVOKE, history_from_jsonl
 
 
 ELLE_WORKLOADS = ("append", "txnregister")
+
+# The linearizability model that re-checks a workload's per-key histories
+# (the JAX package's cli CORPUS_MODELS, for the workloads ported so far).
+CORPUS_MODELS = {"register": "cas-register"}
+
+
+def check_budget(test: dict) -> float | None:
+    """Wall-clock bound of the linearizability search, in seconds, from a
+    run's test.json: its "check_budget_s" (0 or null: unbounded), 120
+    when it has none."""
+    if "check_budget_s" in test:
+        v = test["check_budget_s"]
+        return float(v) if v else None
+    return 120.0
 
 
 def _read_history(path: Path):
@@ -64,7 +81,9 @@ def _checker(args, path: Path, history):
                    device=args.device)
     if workload != "register":
         raise NotImplementedError(f"workload {workload!r} is not ported")
-    lin = Linearizable(args.model, device=args.device)
+    model = args.model or CORPUS_MODELS[workload]
+    lin = Linearizable(model, device=args.device,
+                       time_budget_s=check_budget(test))
     return IndependentChecker(lin) if is_keyed(history) else lin
 
 
@@ -89,13 +108,13 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="command", required=True)
     a = sub.add_parser("analyze", help="re-check a stored history")
     a.add_argument("path", help="run directory or history.jsonl file")
-    a.add_argument("--workload", default=None,
+    a.add_argument("-w", "--workload", default=None,
                    choices=["register", *ELLE_WORKLOADS],
                    help="default: the run's test.json, else register")
-    a.add_argument("-w", "--model", default="cas-register",
+    a.add_argument("--model", default=None,
                    choices=["register", "cas-register"],
-                   help="model to check against (the register workload's "
-                        "histories are checked against cas-register)")
+                   help="model to check against (default: the workload's, "
+                        "cas-register for register)")
     a.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     return cmd_analyze(args)

@@ -10,8 +10,8 @@
 // kernel: it runs a history's return-step scan with the reachability
 // table held on chip. The third also sweeps the general path's
 // dense-chunked tables (2^20 < S * 2^K <= 2^26 bits), which no block's
-// shared memory holds: the global tier below keeps those in device
-// memory, where they stay in the 50 MB L2.
+// shared memory holds: the global tier below splits those over the
+// shared memories of a cluster of blocks, or of a few clusters.
 //
 // Layout (ops/wgl3_kernels.py prepares it):
 //   ln   int32[B]          real (non-pad) return steps of each history
@@ -61,18 +61,19 @@
 //     j >= 5 that have a transition, a barrier before each; the count is
 //     taken during the sweep (the last sweep changes nothing) and summed
 //     with one shared atomic per warp (wgl3_table.cuh).
-//   * Global (tables past 2^20 bits, one history a launch): a
-//     cooperative grid of up to 128 blocks sweeps the table in place in
-//     device memory, each block owning a contiguous slice of the word
-//     columns of every row. Slots 0..4 run inside a thread's own words,
-//     slots whose word pairs stay inside a slice behind a block barrier,
-//     and slots that cross slices behind a grid barrier
-//     (cg::this_grid().sync(); slots run in increasing order, so every
-//     slot after the first crossing one crosses too). The fixpoint flag,
-//     the count and the survival flag are reduced in global memory, in
-//     three rotating places each, so none is cleared while it is read.
-//     The table is read and written with ld/st.cg (L2, not the SM's own
-//     L1), the only level all SMs see alike.
+//   * Global (tables past 2^20 bits, one history a launch): G blocks of
+//     up to 1024 threads in clusters of C (16 on the H100), each block
+//     holding a slice of the word columns of every row in its shared
+//     memory for the whole window. A block closes its slice under slots
+//     0..4 and the slots inside the slice until nothing changes, before
+//     any exchange; the slots that cross two blocks of a cluster read the
+//     partner's slice through distributed shared memory, behind cluster
+//     barriers (barrier.cluster arrive.release / wait.acquire); only the
+//     slots that cross two clusters go through device memory behind a
+//     grid barrier (a cooperative launch with a cluster dimension), which
+//     also carries the fixpoint flag. A table of 2^21 bits is one
+//     cluster, so its launch has no grid barrier at all; from 2^22 bits
+//     the grid holds more than one cluster.
 // The routes iterate only the destinations a slot has a transition to
 // (usually one: the model is deterministic), and both read their step
 // inputs from a ring in shared memory that cp.async fills kRing steps
@@ -83,8 +84,9 @@
 // on the shared route) and integer issue, not device memory (a history's
 // inputs are read once). A lone history runs on one SM; a corpus of B
 // histories fills the 132 SMs. Splitting one large table over a cluster
-// of blocks is not done here. The global tier's steps wait on L2
-// latency and on its grid barriers, one per crossing slot and sweep.
+// of blocks is done only past 2^20 bits, by the global tier, whose steps
+// wait on its cluster barriers (about 0.8 us on the H100) and, from 2^22
+// bits, its grid barriers (about 1.2 us), one of each a pass.
 
 #include <cooperative_groups.h>
 
@@ -476,66 +478,67 @@ sweep_block_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
     for (int i = tid; i < S * W; i += nt) Tb[i] = T[i];
 }
 
-// -- the global-memory tier --------------------------------------------------
+// -- the global tier: slices in shared memory, clusters over DSMEM ----------
 
-constexpr int kGlobalThreads = 256;
-constexpr int kGlobalMaxBlocks = 128;
-constexpr int kGlobalMinSlice = 64;  // words of a row per block, at least
+constexpr int kGlobalMaxThreads = 1024;
+constexpr int kGlobalMaxCluster = 16;           // non-portable on H100
+constexpr int kGlobalSliceBytes = 128 * 1024;   // a block's slice, at most
+constexpr long long kGlobalMinSliceBits = 1 << 17;  // and, if it can, at least
+constexpr int kGlobalMaxBlocks = 64;  // one a SM in clusters of 16 on the H100
 
-__device__ __forceinline__ uint32_t gather_global(const uint32_t* T, int W,
-                                                  int w, uint32_t m) {
-  uint32_t acc = 0;
+// barrier.cluster with release on arrival and acquire on wait: every
+// thread of every block of the cluster arrives, and no thread passes
+// before all did; shared-memory writes before it (local or remote) are
+// seen after it.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// OR of the source rows set in m of word column i of a slice with row
+// stride `stride`: this block's slice, a cluster partner's (a pointer from
+// map_shared_rank), or the table in device memory (through L2).
+template <bool DEVICE>
+__device__ __forceinline__ uint32_t gather_slice(const uint32_t* P,
+                                                 int stride, int i,
+                                                 uint32_t m) {
+  uint32_t acc = 0u;
   while (m) {
     const int s = __ffs(m) - 1;
     m &= m - 1;
-    acc |= __ldcg(T + (size_t)s * W + w);
+    acc |= DEVICE ? __ldcg(P + (size_t)s * stride + i)
+                  : P[(size_t)s * stride + i];
   }
   return acc;
 }
 
-// fire_in_word_nz and fire_across_nz of wgl3_table.cuh on a table in
-// device memory.
-__device__ __forceinline__ int fire_in_word_global(uint32_t* T,
-                                                   const uint32_t* cms, int K,
-                                                   int W, int w, int j, int t,
-                                                   uint32_t nz) {
-  const uint32_t a = wgl3::allowed_word(w, t) & wgl3::lo_mask(j);
-  if (!a) return 0;
-  const int sh = 1 << j;
-  int changed = 0;
-  while (nz) {
-    const int d = __ffs(nz) - 1;
-    nz &= nz - 1;
-    const uint32_t m = cms[d * K + j];
-    const uint32_t fired = gather_global(T, W, w, m) & a;
-    uint32_t* p = T + (size_t)d * W + w;
-    const uint32_t old = __ldcg(p);
-    const uint32_t nv = old | (fired << sh);
-    if (nv != old) {
-      __stcg(p, nv);
-      changed = 1;
-    }
+// Fires slot j into this block's word column `id` of the rows set in nz
+// from the source column `is` of slice P (row stride `stride`), whose
+// global word index is gs. j < 5 shifts inside the word (is == id).
+// Only this block's slice is written, so a remote or device source is
+// read and never written. Returns whether a word changed.
+template <bool DEVICE>
+__device__ __forceinline__ int fire_slice(uint32_t* Ts, const uint32_t* P,
+                                          int stride, const uint32_t* cms,
+                                          int K, int Wb, int is, int id,
+                                          int gs, int j, int t, uint32_t nz) {
+  uint32_t a = wgl3::allowed_word(gs, t);
+  int sh = 0;
+  if (j < 5) {
+    a &= wgl3::lo_mask(j);
+    sh = 1 << j;
   }
-  return changed;
-}
-
-__device__ __forceinline__ int fire_across_global(uint32_t* T,
-                                                  const uint32_t* cms, int K,
-                                                  int W, int ws, int wd, int j,
-                                                  int t, uint32_t nz) {
-  const uint32_t a = wgl3::allowed_word(ws, t);
   if (!a) return 0;
   int changed = 0;
   while (nz) {
     const int d = __ffs(nz) - 1;
     nz &= nz - 1;
-    const uint32_t m = cms[d * K + j];
-    const uint32_t fired = gather_global(T, W, ws, m) & a;
-    uint32_t* p = T + (size_t)d * W + wd;
-    const uint32_t old = __ldcg(p);
+    const uint32_t fired =
+        (gather_slice<DEVICE>(P, stride, is, cms[d * K + j]) & a) << sh;
+    const uint32_t old = Ts[d * Wb + id];
     const uint32_t nv = old | fired;
     if (nv != old) {
-      __stcg(p, nv);
+      Ts[d * Wb + id] = nv;
       changed = 1;
     }
   }
@@ -544,39 +547,87 @@ __device__ __forceinline__ int fire_across_global(uint32_t* T,
 
 // One window of one history over a table T uint32[S, W] in device memory,
 // updated in place with meta int32[5] (the carry of the resume option).
-// flags int32[9], zero at launch: the fixpoint flag, the count and the
-// survival flag, three rotating places each. Block g owns word columns
-// [g * Wb, (g + 1) * Wb) of every row and the word pairs
-// [g * Wb / 2, (g + 1) * Wb / 2) of each slot j >= 5 (pair i: source ws =
-// i with a zero bit inserted at j - 5, destination ws | 2^(j-5)), which lie
-// in its own slice while 2^(j-5) < Wb.
-__global__ void __launch_bounds__(kGlobalThreads)
+//
+// Block g of the G-block grid (clusters of C blocks, rank g % C) holds word
+// columns [g * Wb, (g + 1) * Wb) of every row in shared memory for the
+// whole window, Ts[S][Wb]; T is read at the start and written at the end.
+// A slot j >= 5 pairs word w (bit j-5 clear) with w + 2^(j-5): inside a
+// slice while 2^(j-5) < Wb (a local slot), between two blocks of one
+// cluster while 2^(j-5) < Wb * C (a cluster slot), between two clusters
+// past that (a grid slot; only with GRID, G > C).
+//
+// A step closes the table in passes. Pass p:
+//   1. local fixpoint: the block sweeps its slice under slots 0..4 and the
+//      local slots until a sweep changes nothing (__syncthreads_or), and
+//      counts the slice in that last sweep;
+//   2. with GRID: a cluster barrier, then each block whose rank has a
+//      cluster slot's bit set pulls the slot's sources from its partner's
+//      slice through distributed shared memory; the blocks that are a grid
+//      slot's sources copy its source rows into T (st.cg);
+//   3. the pass is published: whether the block changed a word since the
+//      previous publication, and its count, are added to the cluster's
+//      (without GRID: rank 0's shared memory, one cluster barrier) or the
+//      grid's (flags in device memory, one grid barrier) three rotating
+//      places, so none is cleared while a block still reads it;
+//   4. if no block changed a word since the previous publication, and it
+//      was not the step's first (whose pulls have not run), the step's
+//      table is closed: every firing since then read a table that did not
+//      change, so the count is the converged table's; so it is after the
+//      first pass when no crossing slot fires this step. Otherwise the
+//      pulls
+//      that wait for this barrier run (without GRID the cluster slots;
+//      with GRID the grid slots, read from T), and their changes are
+//      published by the next pass.
+// The closure is monotone and every firing only ORs in configs of its
+// least fixpoint, so a pull that reads a partner's slice while the partner
+// writes it is harmless; the pass that ends the closure wrote nothing.
+// The prune moves a crossing slot's words to its partner: a cluster
+// partner's slice through DSMEM, a grid partner's columns of T, read back
+// after the step's barrier; the same barrier reduces the survival flag.
+// Each pull writes the word columns this thread owns (w = tid, tid + nt,
+// ...), the columns the next local sweep starts on, so no block barrier
+// sits between them.
+template <bool GRID>
+__global__ void __launch_bounds__(kGlobalMaxThreads, 1)
 sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
                     const uint32_t* __restrict__ cm, uint32_t* T, int* meta,
                     int* flags, int R, int S, int K) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ uint32_t ring[];  // [kRing][SK + 1]
-  __shared__ unsigned int bcnt;
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ uint32_t smem[];
+  __shared__ unsigned int cflag[3], ccount[3], calive[3];  // rank 0: cluster
+  __shared__ unsigned int bcnt, bchg;
   const int W = 1 << (K - 5);
   const int SK = S * K;
   const int G = gridDim.x;
   const int Wb = W / G;
+  const int C = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
   const int g = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int lane = tid & 31;
   const int w0 = g * Wb;
-  const int p0 = g * (Wb >> 1);
-  int* chg = flags;
-  unsigned int* cnt = (unsigned int*)flags + 3;
-  int* alv = flags + 6;
+  uint32_t* Ts = smem;            // [S][Wb]
+  uint32_t* ring = smem + S * Wb;  // [kRing][SK + 1]
+  // Slots j < jc stay in the slice, j < jg in the cluster.
+  const int jc = 5 + (31 - __clz(Wb));
+  const int jg = jc + (31 - __clz(C));
+  unsigned int* rflag = cl.map_shared_rank(cflag, 0);
+  unsigned int* rcount = cl.map_shared_rank(ccount, 0);
+  unsigned int* ralive = cl.map_shared_rank(calive, 0);
+  int* gchg = flags;
+  unsigned int* gcnt = (unsigned int*)flags + 3;
+  int* galv = flags + 6;
 
   int dead = meta[0];
   int dead_step = meta[1];
   int maxf = meta[2];
   unsigned int cfgs = (unsigned int)meta[3];  // wraps as an i32 accumulator
   const int offset = meta[4];
-  if (tid == 0) bcnt = 0u;
+  for (int i = tid; i < Wb; i += nt)
+    for (int s = 0; s < S; ++s) Ts[s * Wb + i] = T[(size_t)s * W + w0 + i];
+  if (tid < 3) cflag[tid] = ccount[tid] = calive[tid] = 0u;
+  if (tid == 0) bcnt = bchg = 0u;
 
   const int steps = ln[0];
   const int live_steps = dead ? 0 : steps;
@@ -585,8 +636,9 @@ sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
       wgl3::stage_step(ring + q * (SK + 1), tg, cm, q, SK, tid, nt);
     wgl3::cp_async_commit();
   }
+  cluster_barrier();  // rank 0's places are zero before any block adds
 
-  int sweep = 0;
+  int pass = 0;
   for (int r = 0; r < live_steps; ++r) {
     wgl3::cp_async_wait<wgl3::kRing - 1>();
     __syncthreads();  // step r's inputs are in place
@@ -597,88 +649,207 @@ sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
     uint32_t nzin[5];
 #pragma unroll
     for (int j = 0; j < 5; ++j) nzin[j] = __shfl_sync(kFull, nz, j);
-    unsigned int c;
-    while (true) {
-      int changed = 0;
-      c = 0u;
-      // This thread's words under slots 0..4, counted first: in the sweep
-      // that changes nothing, c is its share of the converged table.
-      for (int w = w0 + tid; w < w0 + Wb; w += nt) {
-        for (int s = 0; s < S; ++s) c += __popc(__ldcg(T + (size_t)s * W + w));
-#pragma unroll
-        for (int j = 0; j < 5; ++j)
-          if (nzin[j])
-            changed |= fire_in_word_global(T, cms, K, W, w, j, t, nzin[j]);
-      }
-      for (int j = 5; j < K; ++j) {
+    // Whether a cluster slot or any crossing slot fires (grid-uniform),
+    // and the rows that are a source of a grid slot this block feeds.
+    int cluster_fires = 0, cross_fires = 0;
+    for (int j = jc; j < K; ++j) {
+      const int f = __shfl_sync(kFull, nz, j) != 0u;
+      cross_fires |= f;
+      if (j < jg) cluster_fires |= f;
+    }
+    uint32_t grid_rows = 0u;
+    if (GRID)
+      for (int j = jg; j < K; ++j) {
         const uint32_t nzj = __shfl_sync(kFull, nz, j);
-        if (!nzj) continue;  // grid-uniform: every block has the step
-        const int sh = j - 5;
-        const int dlt = 1 << sh;
-        if (dlt < Wb)
+        if (nzj && !((g >> (j - jc)) & 1))
+          for (int d = 0; d < S; ++d)
+            if ((nzj >> d) & 1u) grid_rows |= cms[d * K + j];
+      }
+    int pend = 0;  // this thread changed a word since the last publication
+    unsigned int n = 0u;
+    for (int step_pass = 0;; ++step_pass) {
+      // 1. Local fixpoint; c is this thread's count of its columns at the
+      // start of the last sweep, which changed nothing.
+      int changed = 0;
+      unsigned int c;
+      while (true) {
+        int ch = 0;
+        c = 0u;
+        for (int i = tid; i < Wb; i += nt) {
+          for (int s = 0; s < S; ++s) c += __popc(Ts[s * Wb + i]);
+#pragma unroll
+          for (int j = 0; j < 5; ++j)
+            if (nzin[j])
+              ch |= fire_slice<false>(Ts, Ts, Wb, cms, K, Wb, i, i, w0 + i,
+                                      j, t, nzin[j]);
+        }
+        for (int j = 5; j < jc && j < K; ++j) {
+          const uint32_t nzj = __shfl_sync(kFull, nz, j);
+          if (!nzj) continue;  // block-uniform: the masks are the block's
           __syncthreads();
-        else
-          grid.sync();
-        for (int i = p0 + tid; i < p0 + (Wb >> 1); i += nt) {
-          const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
-          changed |= fire_across_global(T, cms, K, W, ws, ws | dlt, j, t, nzj);
+          const int sh = j - 5;
+          const int dlt = 1 << sh;
+          for (int i = tid; i < (Wb >> 1); i += nt) {
+            const int is = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
+            ch |= fire_slice<false>(Ts, Ts, Wb, cms, K, Wb, is, is | dlt,
+                                    w0 + is, j, t, nzj);
+          }
+        }
+        if (!__syncthreads_or(ch)) break;
+        changed = 1;
+      }
+      c = __reduce_add_sync(kFull, c);
+      if (__any_sync(kFull, pend) && lane == 0) atomicOr(&bchg, 1u);
+      if (lane == 0) atomicAdd(&bcnt, c);
+      pend = 0;
+      // 2. With GRID: cluster pulls after a cluster barrier, then the grid
+      // slots' source rows go to T.
+      if (GRID) {
+        if (cluster_fires) {
+          cluster_barrier();
+          for (int j = jc; j < jg && j < K; ++j) {
+            const uint32_t nzj = __shfl_sync(kFull, nz, j);
+            const int bit = 1 << (j - jc);
+            if (!nzj || !(rank & bit)) continue;
+            const uint32_t* P = cl.map_shared_rank(Ts, rank ^ bit);
+            const int dlt = 1 << (j - 5);
+            for (int i = tid; i < Wb; i += nt)
+              pend |= fire_slice<false>(Ts, P, Wb, cms, K, Wb, i, i,
+                                        (w0 + i) ^ dlt, j, t, nzj);
+          }
+          if (__any_sync(kFull, pend) && lane == 0) atomicOr(&bchg, 1u);
+          pend = 0;
+        }
+        for (uint32_t m = grid_rows; m; m &= m - 1) {
+          const int s = __ffs(m) - 1;
+          for (int i = tid; i < Wb; i += nt)
+            __stcg(T + (size_t)s * W + w0 + i, Ts[s * Wb + i]);
         }
       }
-      if (__any_sync(kFull, changed) && lane == 0)
-        atomicOr(chg + sweep % 3, 1);
-      grid.sync();
-      const int again = __ldcg(chg + sweep % 3);
-      // Read by every thread after the barrier two sweeps back: clear it.
-      if (g == 0 && tid == 0) atomicExch(chg + (sweep + 2) % 3, 0);
-      ++sweep;
+      // 3. Publish.
+      __syncthreads();  // bcnt and bchg are complete
+      const int k = pass % 3;
+      if (tid == 0) {
+        // With no crossing slot firing, the closed slices are the closed
+        // table; otherwise the step's first pass never ends it, since the
+        // pulls it waits for have not run yet.
+        const unsigned int any =
+            cross_fires && (step_pass == 0 || changed || bchg);
+        if (GRID) {
+          if (any) atomicOr(gchg + k, 1);
+          atomicAdd(gcnt + k, bcnt);
+        } else {
+          if (any) atomicOr(rflag + k, 1u);
+          atomicAdd(rcount + k, bcnt);
+        }
+        bcnt = bchg = 0u;
+      }
+      int again;
+      if (GRID) {
+        cg::this_grid().sync();
+        again = __ldcg(gchg + k);
+        n = __ldcg(gcnt + k);
+        if (g == 0 && tid == 0) {
+          atomicExch(gchg + (pass + 2) % 3, 0);
+          atomicExch(gcnt + (pass + 2) % 3, 0u);
+        }
+      } else {
+        cluster_barrier();
+        again = (int)*(volatile unsigned int*)(rflag + k);
+        n = *(volatile unsigned int*)(rcount + k);
+        if (rank == 0 && tid == 0) {
+          cflag[(pass + 2) % 3] = 0u;
+          ccount[(pass + 2) % 3] = 0u;
+        }
+      }
+      ++pass;
       if (!again) break;
+      // 4. The pulls this barrier waited for.
+      const int j0 = GRID ? jg : jc;
+      const int j1 = GRID ? K : (jg < K ? jg : K);
+      for (int j = j0; j < j1; ++j) {
+        const uint32_t nzj = __shfl_sync(kFull, nz, j);
+        const int bit = 1 << (j - jc);  // of the block index (rank in C)
+        if (!nzj || !(g & bit)) continue;
+        const int dlt = 1 << (j - 5);
+        if (GRID) {
+          for (int i = tid; i < Wb; i += nt)
+            pend |= fire_slice<true>(Ts, T, W, cms, K, Wb, (w0 + i) ^ dlt, i,
+                                     (w0 + i) ^ dlt, j, t, nzj);
+        } else {
+          const uint32_t* P = cl.map_shared_rank(Ts, rank ^ bit);
+          for (int i = tid; i < Wb; i += nt)
+            pend |= fire_slice<false>(Ts, P, Wb, cms, K, Wb, i, i,
+                                      (w0 + i) ^ dlt, j, t, nzj);
+        }
+      }
     }
-    c = __reduce_add_sync(kFull, c);
-    if (lane == 0) atomicAdd(&bcnt, c);
+    // Frontier size of the converged table (banked configs included).
+    maxf = (int)n > maxf ? (int)n : maxf;
+    cfgs += n;
 
-    // Prune at t: keep the configs that fired t, bit t cleared; every
-    // word is rewritten, so a table with no survivor is all zero.
+    // Prune at t: keep the configs that fired t, bit t cleared; every word
+    // is rewritten, so a table with no survivor is all zero.
     int alive = 0;
+    const int dlt = t < 5 ? 0 : 1 << (t - 5);
+    const int bit = t < jc ? 0 : 1 << (t - jc);
     if (t < 5) {
       const int sh = 1 << t;
       const uint32_t lo = wgl3::lo_mask(t);
-      for (int w = w0 + tid; w < w0 + Wb; w += nt)
-        for (int s = 0; s < S; ++s) {
-          uint32_t* p = T + (size_t)s * W + w;
-          const uint32_t v = (__ldcg(p) >> sh) & lo;
-          __stcg(p, v);
-          alive |= v != 0u;
-        }
-    } else {
-      const int sh = t - 5;
-      const int dlt = 1 << sh;
-      for (int i = p0 + tid; i < p0 + (Wb >> 1); i += nt) {
-        const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
-        for (int s = 0; s < S; ++s) {
-          uint32_t* row = T + (size_t)s * W;
-          const uint32_t v = __ldcg(row + (ws | dlt));
-          __stcg(row + ws, v);
-          __stcg(row + (ws | dlt), 0u);
-          alive |= v != 0u;
-        }
+      for (int i = tid; i < S * Wb; i += nt) {
+        const uint32_t v = (Ts[i] >> sh) & lo;
+        Ts[i] = v;
+        alive |= v != 0u;
       }
+    } else if (t < jc) {
+      const int sh = t - 5;
+      for (int i = tid; i < S * (Wb >> 1); i += nt) {
+        const int s = i / (Wb >> 1);
+        const int k = i - s * (Wb >> 1);
+        const int is = ((k >> sh) << (sh + 1)) | (k & (dlt - 1));
+        const uint32_t v = Ts[s * Wb + (is | dlt)];
+        Ts[s * Wb + is] = v;
+        Ts[s * Wb + (is | dlt)] = 0u;
+        alive |= v != 0u;
+      }
+    } else if (g & bit) {
+      // This block holds the configs with bit t set: they move to the
+      // partner's slice (its own words are all overwritten), this one
+      // empties.
+      uint32_t* P = t < jg ? cl.map_shared_rank(Ts, rank ^ bit) : nullptr;
+      for (int i = tid; i < Wb; i += nt)
+        for (int s = 0; s < S; ++s) {
+          const uint32_t v = Ts[s * Wb + i];
+          if (P)
+            P[s * Wb + i] = v;
+          else
+            __stcg(T + (size_t)s * W + ((w0 + i) ^ dlt), v);
+          Ts[s * Wb + i] = 0u;
+          alive |= v != 0u;
+        }
     }
     alive = __syncthreads_or(alive);
-    if (tid == 0) {
-      atomicAdd(cnt + r % 3, bcnt);
-      bcnt = 0u;
-      if (alive) atomicOr(alv + r % 3, 1);
+    const int k = r % 3;
+    int survived;
+    if (GRID) {
+      if (tid == 0 && alive) atomicOr(galv + k, 1);
+      // DSMEM pushes are seen after the cluster barrier, the device
+      // memory ones after the grid barrier.
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      cg::this_grid().sync();
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      survived = __ldcg(galv + k);
+      if (g == 0 && tid == 0) atomicExch(galv + (r + 2) % 3, 0);
+      if (t >= jg && !(g & bit))  // the grid partner wrote this slice
+        for (int i = tid; i < Wb; i += nt)
+          for (int s = 0; s < S; ++s)
+            Ts[s * Wb + i] = __ldcg(T + (size_t)s * W + w0 + i);
+    } else {
+      if (tid == 0 && alive) atomicOr(ralive + k, 1u);
+      cluster_barrier();
+      survived = (int)*(volatile unsigned int*)(ralive + k);
+      if (rank == 0 && tid == 0) calive[(r + 2) % 3] = 0u;
     }
-    grid.sync();
-    const int n = (int)__ldcg((const int*)cnt + r % 3);
-    const int survived = __ldcg(alv + r % 3);
-    if (g == 0 && tid == 0) {
-      atomicExch(cnt + (r + 2) % 3, 0u);
-      atomicExch(alv + (r + 2) % 3, 0);
-    }
-    // Frontier size of the converged table (banked configs included).
-    maxf = n > maxf ? n : maxf;
-    cfgs += (unsigned int)n;
     if (!survived) {  // an empty table ends the search
       dead = 1;
       dead_step = offset + r;
@@ -690,7 +861,12 @@ sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
     wgl3::cp_async_commit();
   }
   wgl3::cp_async_wait<0>();
-  grid.sync();  // every block has read meta
+  // Every block has read meta and T, and no block reads another's slice
+  // any more.
+  if (GRID) cg::this_grid().sync();
+  cluster_barrier();
+  for (int i = tid; i < Wb; i += nt)
+    for (int s = 0; s < S; ++s) T[(size_t)s * W + w0 + i] = Ts[s * Wb + i];
   if (g == 0 && tid == 0) {
     meta[0] = dead;
     meta[1] = dead_step;
@@ -700,27 +876,74 @@ sweep_global_kernel(const int* __restrict__ ln, const int* __restrict__ tg,
   }
 }
 
-// Blocks of the global tier's grid for a table of 2^(K-5) words a row:
-// the co-resident blocks, at most kGlobalMaxBlocks, rounded down to a power
-// of two and leaving each block at least kGlobalMinSlice words of a row.
-cudaError_t global_blocks(int S, int K, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+size_t global_smem(int S, int K, int G) {
+  const int Wb = (1 << (K - 5)) / G;
+  return (size_t)(S * Wb + wgl3::kRing * (S * K + 1)) * sizeof(uint32_t);
+}
+
+// Clusters of C blocks of the global tier's kernel for G blocks that the
+// card holds at once (cudaOccupancyMaxActiveClusters).
+cudaError_t resident_clusters(int S, int K, int G, int C, int* clusters) {
+  const void* fn = G > C ? (const void*)sweep_global_kernel<true>
+                         : (const void*)sweep_global_kernel<false>;
+  const size_t smem = global_smem(S, K, G);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = (size_t)wgl3::kRing * (S * K + 1) * sizeof(uint32_t);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sweep_global_kernel, kGlobalThreads, smem);
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
-  int cap = per_sm * sms;
-  if (cap > kGlobalMaxBlocks) cap = kGlobalMaxBlocks;
-  const int by_slice = (1 << (K - 5)) / kGlobalMinSlice;
-  if (cap > by_slice) cap = by_slice;
-  int g = 1;
-  while (g * 2 <= cap) g *= 2;
-  *blocks = cap >= 1 ? g : 0;
-  return cudaSuccess;
+  const int Wb = (1 << (K - 5)) / G;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(Wb < kGlobalMaxThreads ? Wb : kGlobalMaxThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
+}
+
+// The global tier's geometry for (S, K): G blocks, clusters of C. A step's
+// time follows the integer work of its sweeps on each SM more than its
+// barriers, so G is as large as the card holds in clusters of
+// kGlobalMaxCluster, up to kGlobalMaxBlocks, down to slices of
+// kGlobalMinSliceBits (one cluster for a table of 2^21 bits) and up to
+// slices of kGlobalSliceBytes. C is the largest power of two up to
+// kGlobalMaxCluster and G of which G / C clusters are resident at once.
+// G > C needs a grid barrier, so then the launch is cooperative.
+// tests/test_torch_general.py global_geometry is the same rule in Python.
+cudaError_t global_geometry(int S, int K, int* blocks, int* cluster) {
+  const long long bits = (long long)S << K;
+  int lo = (int)(bits / 8 / kGlobalSliceBytes);
+  if (lo < kGlobalMaxCluster) lo = kGlobalMaxCluster;
+  int G = (int)(bits / kGlobalMinSliceBits);
+  if (G > kGlobalMaxBlocks) G = kGlobalMaxBlocks;
+  if (G < lo) G = lo;
+  cudaError_t e = cudaSuccess;
+  for (; G > lo; G >>= 1) {  // the most blocks clusters of 16 hold
+    int clusters = 0;
+    e = resident_clusters(S, K, G, kGlobalMaxCluster, &clusters);
+    if (e != cudaSuccess) return e;
+    if ((long long)clusters * kGlobalMaxCluster >= G) break;
+  }
+  *blocks = G;
+  *cluster = 0;
+  for (int C = G < kGlobalMaxCluster ? G : kGlobalMaxCluster; C >= 1;
+       C >>= 1) {
+    int clusters = 0;
+    e = resident_clusters(S, K, G, C, &clusters);
+    if (e != cudaSuccess) return e;
+    if ((long long)clusters * C >= G) {
+      *cluster = C;
+      return cudaSuccess;
+    }
+  }
+  return cudaSuccess;  // *cluster == 0: the card cannot hold the grid
 }
 
 int launch_global(const void* ln, const void* tg, const void* cm, void* T,
@@ -728,15 +951,36 @@ int launch_global(const void* ln, const void* tg, const void* cm, void* T,
                   cudaStream_t st) {
   if (S < 1 || S > 32 || K < 11 || K > 31 || !T || !meta || !flags)
     return (int)cudaErrorInvalidValue;
-  int G = 0;
-  cudaError_t e = global_blocks(S, K, &G);
+  int G = 0, C = 0;
+  cudaError_t e = global_geometry(S, K, &G, &C);
   if (e != cudaSuccess) return (int)e;
-  if (G < 1) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)wgl3::kRing * (S * K + 1) * sizeof(uint32_t);
-  void* args[] = {(void*)&ln, (void*)&tg,   (void*)&cm, (void*)&T, (void*)&meta,
-                  (void*)&flags, (void*)&R, (void*)&S,  (void*)&K};
-  e = cudaLaunchCooperativeKernel((const void*)sweep_global_kernel, dim3(G),
-                                  dim3(kGlobalThreads), args, smem, st);
+  const int Wb = (1 << (K - 5)) / G;
+  if (C < 1 || (size_t)S * Wb * 4 > (size_t)kGlobalSliceBytes)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(Wb < kGlobalMaxThreads ? Wb : kGlobalMaxThreads);
+  cfg.dynamicSmemBytes = global_smem(S, K, G);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = G > C ? 2 : 1;
+  const int* lnp = (const int*)ln;
+  const int* tgp = (const int*)tg;
+  const uint32_t* cmp = (const uint32_t*)cm;
+  uint32_t* Tp = (uint32_t*)T;
+  int* mp = (int*)meta;
+  int* fp = (int*)flags;
+  e = G > C ? cudaLaunchKernelEx(&cfg, sweep_global_kernel<true>, lnp, tgp,
+                                 cmp, Tp, mp, fp, R, S, K)
+            : cudaLaunchKernelEx(&cfg, sweep_global_kernel<false>, lnp, tgp,
+                                 cmp, Tp, mp, fp, R, S, K);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -876,8 +1120,9 @@ int wgl3_sweep_launch_slot_table(const void* ln, const void* tg,
 
 // One window of one history through the global tier, in place: T
 // uint32[S, 2^(K-5)] and meta int32[5] in device memory, flags int32[9]
-// zeroed by the caller, ln int32[1], tg int32[R], cm uint32[R, S, K].
-// Returns cudaGetLastError() after the cooperative launch (0 = launched).
+// zeroed by the caller, ln int32[1], tg int32[R], cm uint32[R, S, K], in
+// global_geometry's blocks and clusters. Returns cudaGetLastError() after
+// the launch (0 = launched).
 int wgl3_sweep_global_launch(const void* ln, const void* tg, const void* cm,
                              void* T, void* meta, void* flags, int R, int S,
                              int K, void* stream) {
@@ -885,10 +1130,11 @@ int wgl3_sweep_global_launch(const void* ln, const void* tg, const void* cm,
                        (cudaStream_t)stream);
 }
 
-// The global tier's grid for (S, K): its blocks, or -1 on a CUDA error.
-int wgl3_sweep_global_blocks(int S, int K) {
-  int G = 0;
-  return global_blocks(S, K, &G) == cudaSuccess ? G : -1;
+// The global tier's geometry for (S, K) on this card: out[0] blocks,
+// out[1] cluster size (0 when the card cannot hold the grid). Returns the
+// CUDA error code (0 = queried).
+int wgl3_sweep_global_geometry(int S, int K, int* out) {
+  return (int)global_geometry(S, K, out, out + 1);
 }
 
 // 1 when (S, K) takes the register route, 0 for the shared-memory route.

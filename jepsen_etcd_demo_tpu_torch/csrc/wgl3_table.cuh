@@ -1,10 +1,8 @@
 // Table algebra shared by the dense sweep (wgl3_sweep.cu) and the sparse
 // work-list sweep (wgl3_sparse.cu): a thread block holds one history's
-// reachability table in shared memory and every function here is called
-// by all threads of the block. The staged functions at the end (the step
-// ring filled by cp.async, the sweep over nonzero destinations only) serve
-// the dense sweep's shared-memory route; the sparse sweep keeps the
-// functions before them.
+// reachability table in shared memory. The step inputs come through a
+// ring filled by cp.async, and a slot fires into the destination rows it
+// has a transition to only.
 //
 // The table is uint32[S][W], W = 2^(K-5): bit p of word w of row s is the
 // config (state row s, linearized mask w*32 + p). cms[d*K + j] is the
@@ -47,102 +45,6 @@ __device__ __forceinline__ uint32_t gather_sources(const uint32_t* T, int W,
   return acc;
 }
 
-// Fires slot j < 5 (a shift by 2^j inside word w) from the configs of
-// word w with mask bit j clear; returns whether a word changed. New
-// configs have bit j set, so they never fire slot j again: the rows may
-// be updated in any order.
-__device__ __forceinline__ int fire_in_word(uint32_t* T, const uint32_t* cms,
-                                            int S, int K, int W, int w,
-                                            int j, int t) {
-  const uint32_t a = allowed_word(w, t) & lo_mask(j);
-  if (!a) return 0;
-  const int sh = 1 << j;
-  int changed = 0;
-  for (int d = 0; d < S; ++d) {
-    const uint32_t m = cms[d * K + j];
-    if (!m) continue;
-    const uint32_t fired = gather_sources(T, W, w, m) & a;
-    const uint32_t old = T[d * W + w];
-    const uint32_t nv = old | (fired << sh);
-    if (nv != old) {
-      T[d * W + w] = nv;
-      changed = 1;
-    }
-  }
-  return changed;
-}
-
-// Fires slot j from source word ws into destination word wd, where ws
-// has the slot's word bit clear and wd has it set (5 <= j; wd = ws |
-// 2^(j-5) inside the table, or the matching word of another block for
-// the sparse sweep's block bits). Sources are never destinations of the
-// same slot, so nothing races.
-__device__ __forceinline__ int fire_across(uint32_t* T, const uint32_t* cms,
-                                           int S, int K, int W, int ws,
-                                           int wd, int j, int t) {
-  const uint32_t a = allowed_word(ws, t);
-  if (!a) return 0;
-  int changed = 0;
-  for (int d = 0; d < S; ++d) {
-    const uint32_t m = cms[d * K + j];
-    if (!m) continue;
-    const uint32_t fired = gather_sources(T, W, ws, m) & a;
-    const uint32_t old = T[d * W + wd];
-    const uint32_t nv = old | fired;
-    if (nv != old) {
-      T[d * W + wd] = nv;
-      changed = 1;
-    }
-  }
-  return changed;
-}
-
-// One Gauss-Seidel sweep over the K slots of the whole table, a barrier
-// after each slot. Returns whether this thread changed a word.
-__device__ inline int dense_sweep(uint32_t* T, const uint32_t* cms, int S,
-                                  int K, int W, int t) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  int changed = 0;
-  for (int j = 0; j < K; ++j) {
-    if (j < 5) {
-      for (int w = tid; w < W; w += nt)
-        changed |= fire_in_word(T, cms, S, K, W, w, j, t);
-    } else {
-      const int sh = j - 5;
-      const int dlt = 1 << sh;
-      for (int i = tid; i < (W >> 1); i += nt) {
-        const int ws = ((i >> sh) << (sh + 1)) | (i & (dlt - 1));
-        changed |= fire_across(T, cms, S, K, W, ws, ws | dlt, j, t);
-      }
-    }
-    __syncthreads();
-  }
-  return changed;
-}
-
-// Set bits of T[0..n), summed over the block; every thread gets the sum.
-// `red` is a __shared__ unsigned int[32].
-__device__ inline unsigned int count_table(const uint32_t* T, int n,
-                                          unsigned int* red) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  unsigned int cnt = 0;
-  for (int i = tid; i < n; i += blockDim.x) cnt += __popc(T[i]);
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xFFFFFFFFu, cnt, o);
-  if (lane == 0) red[warp] = cnt;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned int v = lane < nwarps ? red[lane] : 0u;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 // Prune at the returning slot t, in place: keep the configs that fired t,
 // re-addressed with bit t clear. Every word is rewritten, so a table with
 // no survivor is all zero afterwards. Returns whether this thread kept a
@@ -174,16 +76,6 @@ __device__ inline int prune_table(uint32_t* T, int S, int W, int t) {
     }
   }
   return alive;
-}
-
-// Loads step r's S*K column masks into shared memory, between barriers.
-__device__ __forceinline__ void load_step_masks(uint32_t* cms,
-                                                const uint32_t* cmb, int r,
-                                                int S, int K) {
-  __syncthreads();  // the previous step is done with cms and the table
-  for (int i = threadIdx.x; i < S * K; i += blockDim.x)
-    cms[i] = cmb[(size_t)r * S * K + i];
-  __syncthreads();
 }
 
 // -- staged step inputs ------------------------------------------------------
@@ -237,9 +129,6 @@ __device__ __forceinline__ uint32_t slot_destinations(const uint32_t* cms,
   return nz;
 }
 
-// fire_in_word and fire_across (above, the sparse sweep's) over the
-// destination rows set in `nz` only.
-//
 // Fires slot j < 5 (a shift by 2^j inside word w) from the configs of
 // word w with mask bit j clear, into the rows set in `nz`; returns whether
 // a word changed.
@@ -267,9 +156,11 @@ __device__ __forceinline__ int fire_in_word_nz(uint32_t* T,
   return changed;
 }
 
-// Fires slot j >= 5 from source word ws into destination word wd = ws |
-// 2^(j-5) of the rows set in `nz`. Sources are never destinations of the
-// same slot, so nothing races.
+// Fires slot j >= 5 from source word ws into destination word wd of the
+// rows set in `nz`: wd = ws | 2^(j-5) inside the table, or the matching
+// word of another 128-word block for the sparse sweep's block slots. The
+// configs fired have the slot's bit set, the sources have it clear, so
+// nothing races.
 __device__ __forceinline__ int fire_across_nz(uint32_t* T, const uint32_t* cms,
                                               int K, int W, int ws, int wd,
                                               int j, int t, uint32_t nz) {

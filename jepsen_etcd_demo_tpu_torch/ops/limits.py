@@ -20,8 +20,8 @@ class KernelLimits:
     # Larger table budget of the general path's dense-chunked rung
     # (wgl3_kernels.check_encoded_general): a history past the sort
     # ladder's capacity is swept window by window over a table of up to
-    # 2^26 bits = 8 MiB, which csrc/wgl3_sweep.cu keeps in device memory
-    # (its global tier) past 2^20 bits.
+    # 2^26 bits = 8 MiB, which csrc/wgl3_sweep.cu's global tier splits
+    # over the shared memories of thread-block clusters past 2^20 bits.
     dense_cell_budget_chunked: int = 1 << 26
     # Longest return-step scan one launch of the batch sweep takes;
     # longer histories take the resumable sweep, one window at a time.

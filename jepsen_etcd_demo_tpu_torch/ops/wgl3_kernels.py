@@ -9,9 +9,10 @@ Four wrappers, one per kernel entry:
     history, its table and metadata carried in and out (replaces the
     resumable Pallas sweep);
   * `dense_sweep_global`: the same kernel's global tier, one window of
-    one history whose table (past 2^20 bits, up to 2^26) stays in device
-    memory: the general path's dense-chunked rung (the resumable Pallas
-    sweep at the tables the JAX package's chunked budget admits);
+    one history whose table (past 2^20 bits, up to 2^26) is split over
+    the shared memories of a thread-block cluster: the general path's
+    dense-chunked rung (the resumable Pallas sweep at the tables the JAX
+    package's chunked budget admits);
   * `sparse_sweep_resumable`: csrc/wgl3_sparse.cu, the window sweep whose
     closure rounds visit only the live 128-word blocks (replaces the
     sparse work-list Pallas sweep).
@@ -50,10 +51,9 @@ launches = {"dense_sweep": 0, "dense_sweep_resumable": 0,
 
 # Table sizes in bits (S * 2^K): up to SHARED_TABLE_BITS a table lives in
 # one block's shared memory (128 KiB); past it, up to GLOBAL_TABLE_BITS
-# (8 MiB), in device memory through the global tier.
+# (8 MiB), in the shared memories of the global tier's blocks.
 SHARED_TABLE_BITS = 1 << 20
 GLOBAL_TABLE_BITS = 1 << 26
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # ln, tg, cm, out, Tio, meta, B, R, S, K, row0, stream
@@ -218,6 +218,23 @@ def _device_of(cfg: wgl3.DenseConfig, ln, tg, cm, carry=()) -> str:
     return "cuda"
 
 
+def card_global_geometry(n_states: int, k_slots: int) -> tuple[int, int]:
+    """(blocks, cluster) that csrc/wgl3_sweep.cu's launcher picks for the
+    global tier on the current card (its global_geometry: a cluster of 16
+    blocks at 2^21 bits, as many blocks as clusters of 16 the card holds,
+    up to 64, past it; cluster 0 when the card cannot hold the grid)."""
+    from . import build
+
+    fn = build.load("wgl3_sweep").wgl3_sweep_global_geometry
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    rc = fn(n_states, k_slots, out)
+    if rc != 0:
+        raise RuntimeError(f"wgl3_sweep_global_geometry failed (code {rc})")
+    return out[0], out[1]
+
+
 def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -280,9 +297,11 @@ def dense_sweep_global(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
     """One window of the dense sweep of ONE history whose table is past
     2^20 bits: as dense_sweep_resumable with B = 1.
 
-    On CUDA tensors this launches csrc/wgl3_sweep.cu's global tier (a
-    cooperative grid over the table in device memory), which updates T and
-    meta in place; on CPU tensors it runs the plain version."""
+    On CUDA tensors this launches csrc/wgl3_sweep.cu's global tier (the
+    table split over the shared memories of a cluster of blocks, or of a
+    few clusters behind a grid barrier; card_global_geometry), which
+    updates T and meta in place; on CPU tensors it runs the plain
+    version."""
     check_geometry(cfg, "global")
     if meta.shape[-1] != 5 or tg.shape[0] != 1:
         raise ValueError(f"the global tier takes one history and 5 meta "

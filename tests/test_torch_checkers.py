@@ -122,7 +122,7 @@ def test_empty_history_is_valid():
                    "backend": "torch-dense-plain"}
 
 
-def test_not_dense_feasible_raises_not_implemented():
+def test_not_dense_feasible_takes_general_path():
     """30 indeterminate writes pending at once: K=30 leaves the 2^20-cell
     dense budget, and the general path (the sort ladder, its frontier
     canonicalised) checks it, as the JAX package's."""
@@ -138,7 +138,7 @@ def test_not_dense_feasible_raises_not_implemented():
         assert got[f] == want[f], f
 
 
-def test_history_longer_than_one_scan_raises_not_implemented():
+def test_long_history_takes_long_route_and_wide_one_general_path():
     """Past one scan a dense-feasible history takes the long route (the
     same result as the one-scan route); one that is not dense-feasible
     takes the general path, with the JAX package's verdict."""
@@ -201,8 +201,82 @@ def test_cli_keyed_history_and_model_flag(tmp_path, capsys):
     c = _write(tmp_path, "cas.jsonl", cas_only)
     assert cli.main(["analyze", str(c), "--device", "cpu"]) == 0
     assert cli.main(["analyze", str(c), "--device", "cpu",
-                     "-w", "register"]) == 1     # no cas in this model
+                     "--model", "register"]) == 1     # no cas in this model
     capsys.readouterr()
+
+
+def _c1_run(tmp_path, test: dict):
+    """The run directory of ROADMAP C-1: a register run whose one key is
+    written, cas'd and read back."""
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "test.json").write_text(json.dumps(test))
+    h = [POp(type="invoke", f="write", value=(7, 1), process=0),
+         POp(type="ok", f="write", value=(7, 1), process=0),
+         POp(type="invoke", f="cas", value=(7, (1, 2)), process=0),
+         POp(type="ok", f="cas", value=(7, (1, 2)), process=0),
+         POp(type="invoke", f="read", value=(7, None), process=0),
+         POp(type="ok", f="read", value=(7, 2), process=0)]
+    _write(run, "history.jsonl", h)
+    return run, h
+
+
+@pytest.mark.parametrize("argv,rc", [(["-w", "register"], 0),
+                                     (["--workload", "register"], 0),
+                                     ([], 0),
+                                     (["--model", "register"], 1)])
+def test_cli_workload_flag_checks_register_as_cas_register(tmp_path, capsys,
+                                                           argv, rc):
+    """-w is --workload, as in the JAX package, and the register workload
+    is checked against cas-register: the C-1 run is valid, as the JAX
+    package's cas-register checker finds it. --model overrides."""
+    run, h = _c1_run(tmp_path, {"workload": "register"})
+    assert cli.main(["analyze", str(run), "--device", "cpu", *argv]) == rc
+    out = json.loads(capsys.readouterr().out)
+    want = JInd(JLin("cas-register")).check({}, jax_ops(h))
+    assert want["valid"] is True
+    assert out["valid"] is (want["valid"] if rc == 0 else False)
+    assert out["key_count"] == want["key_count"] == 1
+
+
+@pytest.mark.parametrize("test", [{}, {"check_budget_s": 7},
+                                  {"check_budget_s": 0.5},
+                                  {"check_budget_s": 0},
+                                  {"check_budget_s": None}])
+def test_cli_check_budget_reaches_linearizable(tmp_path, test):
+    """analyze bounds the search by test.json's check_budget_s as the JAX
+    package's compose.check_budget reads it (120 s when absent)."""
+    import argparse
+
+    from jepsen_etcd_demo_tpu.compose import check_budget as jbudget
+
+    run, h = _c1_run(tmp_path, {"workload": "register", **test})
+    assert cli.check_budget(test) == jbudget(test)
+    args = argparse.Namespace(workload=None, model=None, device="cpu")
+    checker = cli._checker(args, run, h)
+    assert isinstance(checker, IndependentChecker)
+    assert checker.sub_checker.time_budget_s == jbudget(test)
+    assert checker.sub_checker.model.name == "cas-register"
+
+
+def test_cli_expired_check_budget_answers_unknown(tmp_path, capsys):
+    """A check_budget_s the long route outlasts gives "unknown" (exit 2),
+    so the budget reaches the search itself."""
+    _, hp = fuzz_pair(30, n_ops=200, n_procs=4)
+    run = tmp_path / "run"
+    run.mkdir()
+    _write(run, "history.jsonl", hp)
+    prev = set_limits(KernelLimits(long_scan_max=64, long_window_steps=48))
+    try:
+        (run / "test.json").write_text(json.dumps({"check_budget_s": 1e-9}))
+        assert cli.main(["analyze", str(run), "--device", "cpu"]) == 2
+        out = json.loads(capsys.readouterr().out)
+        assert out["valid"] == "unknown" and "time budget" in out["error"]
+        (run / "test.json").write_text(json.dumps({"check_budget_s": 0}))
+        assert cli.main(["analyze", str(run), "--device", "cpu"]) == 0
+        assert json.loads(capsys.readouterr().out)["valid"] is True
+    finally:
+        set_limits(prev)
 
 
 def test_cli_module_entry_point(tmp_path):

@@ -360,9 +360,9 @@ def test_elle_accumulate_pool_rounds_equal_plain(card):
 
 @pytest.mark.parametrize("K,S", [(18, 8), (16, 32)])
 def test_global_tier_equals_plain_over_windows(card, K, S):
-    """The global tier (tables past 2^20 bits in device memory) against
-    sweep_plain_carry after every 32-step window, through the long route's
-    window loop."""
+    """The global tier (tables past 2^20 bits over thread-block clusters)
+    against sweep_plain_carry after every 32-step window, through the long
+    route's window loop."""
     cfg, _ln, tg, cm = _chain_inputs(K, S, 300 * K + S, card)
     assert wk.global_tier(cfg)
     wk.reset_launches()
@@ -373,6 +373,73 @@ def test_global_tier_equals_plain_over_windows(card, K, S):
     assert len(got) >= 3 and n_launch == len(got)
     for (Tk, mk), (Tp, mp) in zip(got, want):
         assert torch.equal(Tk, Tp) and torch.equal(mk, mp)
+
+
+def _edge_inputs(K: int, writes: int, dies: bool, device):
+    """S = 4 (values 0..1): K - writes - 1 indeterminate cas ops that never
+    fire hold the low slots, `writes` indeterminate writes of 0 the slots
+    above them (so the crossing slots fire), then reads of 0 (and with
+    `dies` one of 1, which ends the search): (cfg, tg, cm)."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_return_steps
+    from jepsen_etcd_demo_tpu_torch.ops.op import Op
+
+    cas = range(K - writes - 1)
+    wr = range(K - writes - 1, K - 1)
+    h = [Op(type="invoke", f="cas", value=(1, 1), process=p) for p in cas]
+    h += [Op(type="invoke", f="write", value=0, process=p) for p in wr]
+    for v in (0, 0, 0, 1) if dies else (0, 0, 0):
+        h += [Op(type="invoke", f="read", value=None, process=100),
+              Op(type="ok", f="read", value=v, process=100)]
+    h += [Op(type="info", f="cas", value=(1, 1), process=p) for p in cas]
+    h += [Op(type="info", f="write", value=0, process=p) for p in wr]
+    model = CASRegister()
+    cfg = wgl3.DenseConfig(k_slots=K, n_states=4,
+                           state_offset=model.state_offset)
+    rs = encode_return_steps(encode_register_history(h, k_slots=K))
+    return (cfg,) + wk.prepare_steps(rs, model, cfg, device)
+
+
+@pytest.mark.parametrize("S,K,blocks,cluster", [
+    (8, 18, 16, 16), (8, 19, 32, 16), (8, 20, 64, 16), (8, 21, 64, 16),
+    (8, 22, 64, 16), (8, 23, 64, 16), (4, 19, 16, 16), (4, 24, 64, 16)])
+def test_global_geometry_on_card_is_the_rule(card, S, K, blocks, cluster):
+    """The launcher's blocks and cluster size on an H100 (7 clusters of
+    16 resident) are the geometry rule's
+    (test_torch_general.py::global_geometry)."""
+    assert wk.card_global_geometry(S, K) == (blocks, cluster)
+
+
+@pytest.mark.parametrize("K", [19, 24])
+@pytest.mark.parametrize("dies", [False, True])
+def test_global_tier_edges_equal_plain(card, K, dies):
+    """2^21 bits (one cluster, no grid barrier) and 2^26 bits (four
+    clusters, two grid slots) at S = 4, with the writes in the crossing
+    slots: the kernel equals its plain version after every window."""
+    cfg, tg, cm = _edge_inputs(K, 10, dies, card)
+    got = _chain(cfg, tg, cm, wk.dense_sweep_global, False)
+    want = _chain(cfg, tg, cm, wk.resumable_reference, False)
+    torch.cuda.synchronize()
+    for (Tk, mk), (Tp, mp) in zip(got, want):
+        assert torch.equal(Tk, Tp) and torch.equal(mk, mp)
+    assert int(got[-1][1][0, 1]) == (3 if dies else -1)
+
+
+@pytest.mark.parametrize("K", [13, 18])
+@pytest.mark.parametrize("dies", [False, True])
+def test_sparse_kernel_edges_equal_plain(card, K, dies):
+    """2 and 64 blocks at S = 4 with configs spread over many blocks:
+    every round sparse, and a threshold of 4 live blocks (rounds switch to
+    dense), equal to the plain version, telemetry included."""
+    cfg, tg, cm = _edge_inputs(K, 9, dies, card)
+    nb = cfg.n_words // 128
+    for thresh in (nb, 4):
+        got = _chain(cfg, tg, cm, partial(wk.sparse_sweep_resumable,
+                                          thresh_blocks=thresh), True)
+        want = _chain(cfg, tg, cm, partial(wk.sparse_reference,
+                                           thresh_blocks=thresh), True)
+        torch.cuda.synchronize()
+        for (Tk, mk), (Tp, mp) in zip(got, want):
+            assert torch.equal(Tk, Tp) and torch.equal(mk, mp)
 
 
 def test_global_tier_refuses_tables_it_does_not_take(card):

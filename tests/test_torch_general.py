@@ -25,7 +25,9 @@ from jepsen_etcd_demo_tpu.checkers import IndependentChecker as JInd
 from jepsen_etcd_demo_tpu.checkers import Linearizable as JLin
 from jepsen_etcd_demo_tpu.checkers import witness as jwitness
 from jepsen_etcd_demo_tpu.models import CASRegister as JM
+from jepsen_etcd_demo_tpu.ops import encode as jenc
 from jepsen_etcd_demo_tpu.ops import wgl2 as jwgl2
+from jepsen_etcd_demo_tpu.ops import wgl3 as jwgl3
 from jepsen_etcd_demo_tpu.ops import wgl3_pallas as jpal
 from jepsen_etcd_demo_tpu.ops.op import OK
 from jepsen_etcd_demo_tpu.utils import fuzz as jfuzz
@@ -39,8 +41,9 @@ from jepsen_etcd_demo_tpu_torch.ops import wgl3 as pwgl3
 from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
 
-from torch_port_util import (GENERAL, assert_checkpoints_equal, encodings,
-                             history, one_device, pin, port_ops)
+from torch_port_util import (GENERAL, assert_checkpoints_equal,
+                             edge_history, encodings, history, one_device,
+                             pin, port_ops)
 
 JMODEL, PMODEL = JM(), PM()
 # The shared fixtures this module uses (one_device is autouse).
@@ -279,6 +282,129 @@ def test_global_tier_geometry_and_plain_version():
                               cm.repeat(2, 1, 1, 1), cfg,
                               *(x.repeat(2, *[1] * (x.dim() - 1))
                                 for x in c0))
+
+
+# The global tier's geometry rule as csrc/wgl3_sweep.cu's global_geometry
+# applies it (the card's launcher is its only copy in the port; the card
+# test test_torch_cuda.py::test_global_geometry_on_card_is_the_rule holds
+# its choices to this rule's on the H100): a block's slice of the table is
+# at most GLOBAL_SLICE_BYTES and, where the card holds that many blocks in
+# clusters of GLOBAL_MAX_CLUSTER (up to GLOBAL_MAX_BLOCKS), at least
+# GLOBAL_MIN_SLICE_BITS.
+GLOBAL_SLICE_BYTES = 128 * 1024
+GLOBAL_MIN_SLICE_BITS = 1 << 17
+GLOBAL_MAX_CLUSTER = 16
+GLOBAL_MAX_BLOCKS = 64
+# Clusters of each size an NVIDIA H100 80GB HBM3 holds at once with a
+# 128 KiB slice (and its step ring) and 1024 threads a block
+# (cudaOccupancyMaxActiveClusters).
+H100_MAX_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+def global_geometry(n_states: int, k_slots: int,
+                    max_clusters: dict[int, int] = H100_MAX_CLUSTERS) -> dict:
+    """The global tier's launch for a table of S = n_states rows of
+    2^(K-5) words given the card's resident clusters of each size
+    (`max_clusters`): `blocks` G (as many as clusters of 16 hold, up to
+    GLOBAL_MAX_BLOCKS, down to slices of GLOBAL_MIN_SLICE_BITS, up to
+    slices of GLOBAL_SLICE_BYTES, and at least GLOBAL_MAX_CLUSTER),
+    `cluster` C (the largest power of two up to 16 and G with G / C
+    clusters resident; 0 if none is), `slice_words` a row's words per
+    block, `threads` a block, and the slots j >= 5 by where their word
+    pairs lie: `local_slots` (inside a slice), `cluster_slots` (two blocks
+    of a cluster, through distributed shared memory) and `grid_slots` (two
+    clusters, behind a grid barrier; none when G == C)."""
+    W = 1 << (k_slots - 5)
+    bits = n_states << k_slots
+    lo = max(GLOBAL_MAX_CLUSTER, bits // 8 // GLOBAL_SLICE_BYTES)
+    G = max(lo, min(GLOBAL_MAX_BLOCKS, bits // GLOBAL_MIN_SLICE_BITS))
+    while G > lo and (max_clusters.get(GLOBAL_MAX_CLUSTER, 0)
+                      * GLOBAL_MAX_CLUSTER < G):
+        G //= 2
+    C = min(G, GLOBAL_MAX_CLUSTER)
+    while C >= 1 and max_clusters.get(C, 0) * C < G:
+        C //= 2
+    Wb = W // G
+    slots = {"local_slots": [], "cluster_slots": [], "grid_slots": []}
+    for j in range(5, k_slots):
+        span = 1 << (j - 5)
+        where = ("local" if span < Wb else
+                 "cluster" if span < Wb * max(C, 1) else "grid")
+        slots[f"{where}_slots"].append(j)
+    return {"blocks": G, "cluster": C, "slice_words": Wb,
+            "threads": min(Wb, 1024), **slots}
+
+
+# (S, K) -> blocks, cluster size, cluster slots, grid slots, on the H100.
+GLOBAL_GEOMETRY = [((8, 18), 16, 16, [14, 15, 16, 17], []),
+                   ((8, 19), 32, 16, [14, 15, 16, 17], [18]),
+                   ((8, 20), 64, 16, [14, 15, 16, 17], [18, 19]),
+                   ((8, 21), 64, 16, [15, 16, 17, 18], [19, 20]),
+                   ((8, 22), 64, 16, [16, 17, 18, 19], [20, 21]),
+                   ((8, 23), 64, 16, [17, 18, 19, 20], [21, 22])]
+
+
+@pytest.mark.parametrize("geom,blocks,cluster,cluster_slots,grid_slots",
+                         GLOBAL_GEOMETRY)
+def test_global_geometry_rule(geom, blocks, cluster, cluster_slots,
+                              grid_slots):
+    """The launcher's choice for each size the global tier takes (2^21 to
+    2^26 bits): as many blocks as clusters of 16 hold on the card (64),
+    down to 16 KiB slices and up to 128 KiB ones; every slot j >= 5 is
+    local, crosses two blocks of a cluster or crosses two clusters (grid
+    barrier), in that order."""
+    S, K = geom
+    g = global_geometry(S, K)
+    assert (g["blocks"], g["cluster"]) == (blocks, cluster)
+    assert g["cluster_slots"] == cluster_slots
+    assert g["grid_slots"] == grid_slots
+    assert g["local_slots"] == list(range(5, cluster_slots[0]))
+    W = 1 << (K - 5)
+    assert g["slice_words"] * blocks == W
+    assert S * g["slice_words"] * 4 <= GLOBAL_SLICE_BYTES
+    assert g["threads"] == min(1024, g["slice_words"])
+    assert (1 << (cluster_slots[0] - 5)) == g["slice_words"]
+    # A block index bit per crossing slot.
+    assert 1 << len(cluster_slots + grid_slots) == blocks
+
+
+def test_global_geometry_under_fewer_resident_clusters():
+    """Where the card holds fewer clusters of 16, the grid shrinks to what
+    they hold, or keeps its blocks in smaller clusters when its slices
+    cannot grow; a card that holds no cluster gets cluster size 0."""
+    few = {16: 3, 8: 15, 4: 30, 2: 66, 1: 132}
+    g = global_geometry(8, 21, few)
+    assert (g["blocks"], g["cluster"], g["grid_slots"]) == (32, 16, [20])
+    g = global_geometry(8, 23, few)
+    assert (g["blocks"], g["cluster"]) == (64, 8)
+    assert g["cluster_slots"] == [17, 18, 19]
+    assert g["grid_slots"] == [20, 21, 22]
+    assert global_geometry(8, 21, {})["cluster"] == 0
+
+
+@pytest.mark.parametrize("k", [19, 24])
+@pytest.mark.parametrize("dies", [False, True])
+def test_global_tier_plain_version_at_its_edges(pin, k, dies):
+    """At the global tier's edges, 2^21 and 2^26 bits at the narrowest S
+    (4): its plain version, through the long route's window chain, gives
+    the JAX package's XLA long sweep's result."""
+    pin(sparse_mode=1)
+    hj = edge_history(k, writes=10, dies=dies)
+    jrs = jenc.encode_return_steps(jenc.encode_register_history(hj, k))
+    prs = penc.encode_return_steps(
+        penc.encode_register_history(port_ops(hj), k))
+    jcfg = jwgl3.dense_config(JMODEL, k, 1, budget=1 << 28)
+    pcfg = pwgl3.DenseConfig(k_slots=k, n_states=jcfg.n_states,
+                             state_offset=jcfg.state_offset)
+    assert pcfg.n_states == 4 and wk.global_tier(pcfg)
+    assert pcfg.n_states << k == (1 << 21 if k == 19 else 1 << 26)
+    want = jwgl3.check_steps3_long(jrs, JMODEL, jcfg)
+    _T, meta = wk.run_chain(prs, PMODEL, pcfg, "cpu")
+    got = wk.long_result(meta[0].tolist())
+    for f in ("valid", "dead_step", "max_frontier", "configs_explored"):
+        assert got[f] == want[f], (f, got, want)
+    assert got["valid"] is not dies and got["max_frontier"] > 1 << 9
+    assert got["dead_step"] == (3 if dies else -1)
 
 
 def test_plan_labels_of_the_chunked_geometry():

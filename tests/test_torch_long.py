@@ -42,7 +42,7 @@ from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 from jepsen_etcd_demo_tpu_torch.ops import wgl3_sparse as psparse
 from jepsen_etcd_demo_tpu_torch.utils import fuzz as pfuzz
 
-from torch_port_util import fuzz_pair, port_ops
+from torch_port_util import edge_history, fuzz_pair, port_ops
 
 JMODEL, PMODEL = JM(), PM()
 LONG = ("valid", "survived", "dead_step", "max_frontier",
@@ -346,6 +346,47 @@ def test_sweep_summary_matches_jax():
                 jwgl3.sweep_summary(cfg_j, *args, tiling=tiling)
 
 
+@pytest.mark.parametrize("k", [13, 18])
+@pytest.mark.parametrize("dies", [False, True])
+def test_sparse_plain_version_at_its_edges(pin, k, dies):
+    """At the sparse kernel's edges, 2 and 64 blocks (K=13 and 18) at the
+    narrowest S (4), with configs in many blocks: its plain version, every
+    round sparse and with a threshold of 4 live blocks, gives the JAX
+    package's XLA long sweep's verdict fields and the port's dense plain
+    version's carry, and counts every step."""
+    pin(jax={"sparse_mode": 1})
+    hj = edge_history(k, writes=9, dies=dies)
+    jrs = jenc.encode_return_steps(jenc.encode_register_history(hj, k))
+    prs = penc.encode_return_steps(
+        penc.encode_register_history(port_ops(hj), k))
+    jcfg, pcfg = _cfgs(k, 1, budget=1 << 28)
+    assert pcfg.n_states == 4
+    nb = pcfg.n_words // 128
+    assert nb == (2 if k == 13 else 64)
+    want = jwgl3.check_steps3_long(jrs, JMODEL, jcfg)
+    tg, cm = wk.prepare_steps(prs, PMODEL, pcfg, "cpu")
+    ln = torch.tensor([prs.n_steps], dtype=torch.int32)
+    dense = wk.dense_sweep_resumable(ln, tg, cm, pcfg,
+                                     *wk.start_carry(PMODEL, pcfg, "cpu"))
+    live = None
+    for thresh in (nb, 4):
+        T, meta = wk.sparse_sweep_resumable(
+            ln, tg, cm, pcfg, *wk.start_carry(PMODEL, pcfg, "cpu", True),
+            thresh)
+        m = meta[0].tolist()
+        got = wk.long_result(m)
+        for f in ("valid", "dead_step", "max_frontier", "configs_explored"):
+            assert got[f] == want[f], (f, got, want)
+        assert torch.equal(T, dense[0]) and m[:5] == dense[1][0].tolist()
+        assert m[7] == prs.n_steps
+        if thresh == nb:
+            assert m[6] == prs.n_steps   # every step sparse
+            live = m[5]
+        else:
+            assert m[5] == live          # the same live blocks either way
+    assert live > prs.n_steps * (1 if k == 13 else 4)
+
+
 def test_sparse_wrapper_refuses_narrow_tables():
     cfg = pwgl3.DenseConfig(k_slots=12, n_states=4, state_offset=1)
     T, meta = pwgl3.fresh_carry(cfg, 0, 1, "cpu", width=8)
@@ -484,7 +525,7 @@ def test_dispatch_long_budget_zero_is_unknown(pin):
     assert out["valid"] == "unknown" and out["overflow"] is True
 
 
-def test_not_dense_feasible_long_history_still_raises(pin):
+def test_not_dense_feasible_long_history_takes_general_path(pin):
     """A long history that is not dense-feasible takes the general path
     (it no longer raises), with the JAX package's verdict."""
     from jepsen_etcd_demo_tpu_torch.ops.op import Op

@@ -49,6 +49,25 @@ def fields(result: dict) -> tuple:
     return tuple(result[f] for f in FIELDS)
 
 
+def edge_history(k: int, writes: int, dies: bool = False):
+    """A history (JAX package Ops) that fills k slots at once: k - writes
+    - 1 indeterminate cas ops expecting 1, a value no op writes (they
+    never fire), take the low slots; `writes` indeterminate writes of 0
+    the slots above them; then three reads of 0 return, and with `dies`
+    a fourth read returns 1, which ends the search. Values stay within
+    0..1, so the geometry has its narrowest S (4)."""
+    cas = range(k - writes - 1)
+    wr = range(k - writes - 1, k - 1)
+    h = [JOp(type="invoke", f="cas", value=(1, 1), process=p) for p in cas]
+    h += [JOp(type="invoke", f="write", value=0, process=p) for p in wr]
+    for v in (0, 0, 0, 1) if dies else (0, 0, 0):
+        h += [JOp(type="invoke", f="read", value=None, process=100),
+              JOp(type="ok", f="read", value=v, process=100)]
+    h += [JOp(type="info", f="cas", value=(1, 1), process=p) for p in cas]
+    h += [JOp(type="info", f="write", value=0, process=p) for p in wr]
+    return h
+
+
 # -- the general path (tests/test_torch_general.py, test_torch_canon.py) --
 
 # Budgets under which histories from K = 8 go general and the
