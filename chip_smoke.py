@@ -25,7 +25,12 @@ package's elle lane (10k txns) under the dense, auto and tiled routes,
 and a 12,000-txn history in the shape of Jepsen's append generator whose
 one big dependency component takes the tiled closure and its accumulate
 kernel, and a mutant with a ww cycle in that component certified against
-the host Tarjan route. It builds the CUDA kernels from csrc/ (one nvcc
+the host Tarjan route. The other models: 10,000-op gset histories on
+the sweep's register and shared routes at 32 states, 1,000-op mutex and
+multi-register histories, the queue workload (100 keys x 20 ops) and an
+unordered-queue history of 31 enqueues, each valid and mutated; the
+device encoder bit-identical to the host expansion; `cli analyze` on
+every workload. It builds the CUDA kernels from csrc/ (one nvcc
 per source, side by side), holds each exactly equal to its plain PyTorch
 version on the card, checks verdicts against the host oracle, the
 whole-scan kernel and the other routes, and shows through the launch
@@ -62,7 +67,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "elle", "cli")
+          "families", "encode", "elle", "cli")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -1695,6 +1700,323 @@ def elle_record(elle_rec):
     return rec, elle_rec["bound"]
 
 
+# -- the other models (mutex, gset, both queues, multi-register) -----------
+
+# Phase `families`: each history through the entry point a user calls,
+# on the card, its invalid mutant too. gset: 10,000 ops at 10 processes
+# over values 0-4 (BASELINE.json configs[3]'s size on the gset
+# workload's value domain, compose.py:244-270), with no indeterminate
+# add (K = 10 at S = 32: the sweep's register route) and with three
+# (seed FAMILY_SEED + 1002 at GSET_P_INFO: K = 14, the shared route).
+# At p_info 0.002 the indeterminate adds pile up to K = 26 and the sort
+# search took 578.9 s on the H100 (PERF.md §6), so that history is not
+# run here. Mutex 1,000 ops at p_info 0.005; multi-register 1,000
+# ops over 3 registers (configs[1]'s size) at MULTIREG_P_INFO, two
+# indeterminate writes (at configs[1]'s 0.016 the frontier passes the
+# sort search's 2^20 cap and the answer is "unknown"); the queue
+# workload's shape (100 keys x 20 ops, 10 processes, fifo-queue of
+# capacity 10); one unordered-queue history of 31 enqueues.
+FAMILY_SEED = 0xFA0
+GSET_OPS, MUTEX_OPS, MULTIREG_OPS = 10_000, 1_000, 1_000
+GSET_P_INFO, MULTIREG_P_INFO = 0.0003, 0.002
+QUEUE_KEYS, QUEUE_OPS = 100, 20
+
+
+def mutex_history(n_ops: int, n_procs: int, p_info: float, seed: int):
+    """A valid mutex history from the port's _gen_history over a
+    simulated lock: an acquire is granted when the lock is free and a
+    release when it is held, else the op fails; either may end
+    indeterminate."""
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import _gen_history
+
+    def choose(rng):
+        return ("acquire" if rng.random() < 0.5 else "release"), None
+
+    def linearize(sim, f, _v):
+        want = f == "acquire"
+        if sim["locked"] == want:
+            return False, None
+        sim["locked"] = want
+        return True, None
+
+    return _gen_history(random.Random(seed), n_ops, n_procs, choose,
+                        linearize, lambda f: True, {"locked": False}, p_info)
+
+
+def oracle_valid(model, h):
+    """(valid, dead_step) of the host oracle on h (after the model's op
+    translation)."""
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+    from jepsen_etcd_demo_tpu_torch.checkers.oracle import check_events_oracle
+
+    enc = Linearizable(model, device="cpu").encode(h)
+    o = check_events_oracle(enc, model)
+    return o.valid, o.dead_step(enc)
+
+
+def double_grant(model, h):
+    """The first of h's ok releases whose turning into :fail the host
+    oracle finds not linearizable: the lock is then granted while held."""
+    from jepsen_etcd_demo_tpu_torch.ops.op import Op
+
+    for i, op in enumerate(h):
+        if op.type == "ok" and op.f == "release":
+            m = [Op(**vars(o)) for o in h]
+            m[i].type = "fail"
+            if not oracle_valid(model, m)[0]:
+                return m
+    raise AssertionError("no double grant is invalid")
+
+
+def certified_mutant(model, h, family: str, seed: int):
+    """The first mutate_family_history mutant of h (seeds seed, seed+1,
+    ...) that is not linearizable: by the host oracle, or, for gset, by
+    construction (an element an ok add put in the set before the read
+    began is missing from the read; the oracle cannot follow 10,000 ops
+    with many indeterminate adds)."""
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import mutate_family_history
+
+    for i in range(200):
+        m = mutate_family_history(random.Random(seed + i), h, family)
+        if family != "gset":
+            if not oracle_valid(model, m)[0]:
+                return m
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(h, m))
+                 if a.value != b.value)
+        gone = set(h[j].value) - set(m[j].value)
+        inv = max(k for k in range(j) if h[k].process == h[j].process
+                  and h[k].type == "invoke")
+        if gone and any(h[k].type == "ok" and h[k].f == "add"
+                        and h[k].value in gone for k in range(inv)):
+            return m
+    raise AssertionError(f"no invalid {family} mutant")
+
+
+@functools.cache
+def family_histories():
+    """{label: (model name, valid history, invalid mutant)} of phase
+    `families`."""
+    from jepsen_etcd_demo_tpu_torch.models import get_model
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_gset_history,
+                                                       gen_multireg_history,
+                                                       gen_queue_history)
+
+    s = FAMILY_SEED
+    out = {}
+    for label, p_info, seed in (("gset-register-route", 0.0, s),
+                                ("gset-shared-route", GSET_P_INFO,
+                                 s + 1002)):
+        h = gen_gset_history(random.Random(seed), n_ops=GSET_OPS,
+                             n_procs=10, value_range=5, p_info=p_info)
+        out[label] = ("gset", h, certified_mutant(get_model("gset"), h,
+                                                  "gset", seed + 1))
+    h = mutex_history(MUTEX_OPS, 10, 0.005, s + 2000)
+    out["mutex"] = ("mutex", h, double_grant(get_model("mutex"), h))
+    h = gen_multireg_history(random.Random(s + 3002), n_ops=MULTIREG_OPS,
+                             n_procs=10, n_registers=3, value_range=5,
+                             p_info=MULTIREG_P_INFO)
+    out["multi-register"] = ("multi-register", h, certified_mutant(
+        get_model("multi-register"), h, "multi-register", s + 3003))
+    h = gen_queue_history(random.Random(s + 4000), n_ops=80, n_procs=10,
+                          fifo=False)
+    assert sum(op.type == "invoke" and op.f == "enqueue" for op in h) == 31
+    out["unordered-queue"] = ("unordered-queue", h, certified_mutant(
+        get_model("unordered-queue"), h, "unordered-queue", s + 4001))
+    return out
+
+
+def queue_workload():
+    """(per-key histories, keyed history, mutated key): the queue
+    workload's shape, one key replaced by an invalid mutant."""
+    from jepsen_etcd_demo_tpu_torch.models import get_model
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_queue_history,
+                                                       interleave_keyed)
+
+    rng = random.Random(FAMILY_SEED + 77)
+    per_key = [gen_queue_history(rng, n_ops=QUEUE_OPS, n_procs=10,
+                                 max_enqueues=10) for _ in range(QUEUE_KEYS)]
+    bad = 3
+    per_key[bad] = certified_mutant(get_model("fifo-queue"), per_key[bad],
+                                    "fifo-queue", FAMILY_SEED + 78)
+    return per_key, interleave_keyed(per_key), bad
+
+
+# The words each model's failed_op starts with (its op language).
+FAILED_OP_WORDS = {"gset": ("add(", "read ->"),
+                   "mutex": ("acquire", "release"),
+                   "multi-register": ("write(r", "read(r"),
+                   "unordered-queue": ("enqueue(", "dequeue ->"),
+                   "fifo-queue": ("enqueue(", "dequeue ->")}
+
+
+def family_row(name, lin, h):
+    """One check through `lin` (general_check) with the geometry and the
+    route: S and the sweep's table route on the dense route, the sort
+    key's state bits on the general path."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl2, wgl3
+
+    row, res, enc = general_check(lin, h)
+    cfg = wgl3.dense_config(lin.model, row["tight_k"], enc.max_value)
+    row["model"] = name
+    if cfg is not None:
+        row["n_states"] = cfg.n_states
+        row["route"] = ("dense, register route" if register_route(cfg)
+                        else "dense, shared route")
+    else:
+        bits = wgl2.make_config(lin.model, row["sort_k"], 1,
+                                enc.max_value).state_bits
+        row["route"] = f"general ({'packed' if bits else 'unpacked'} keys)"
+        row["state_bits"] = bits
+    return row, res, enc
+
+
+def phase_families(dev) -> None:
+    """The five other models on the card through Linearizable and
+    IndependentChecker: every valid history checks
+    valid, every mutant invalid with a failed_op in its model's language;
+    the verdicts of histories of at most 1,000 ops equal the host
+    oracle's, the dense gset ones the whole-scan kernel's."""
+    from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
+                                                     Linearizable)
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import interleave_keyed
+
+    fields = ("valid", "dead_step", "max_frontier", "configs_explored")
+    rows = []
+    Linearizable("gset", device=dev).check(
+        {}, family_histories()["gset-register-route"][1][:200])  # warm-up
+    for label, (name, h, mutant) in family_histories().items():
+        lin = Linearizable(name, device=dev)
+        for kind, hist in (("valid", h), ("mutant", mutant)):
+            row, res, enc = family_row(name, lin, hist)
+            row.update(history=label, kind=kind)
+            want = kind == "valid"
+            assert res["valid"] is want, (label, kind, res)
+            if not want and res.get("witness") == "skipped":
+                # Every witness rung passed its effort cap (a frontier of
+                # thousands of configs): the JAX package's ladder, too,
+                # records the death point without a failed op then.
+                row["witness"] = res["witness_detail"]
+            elif not want:
+                assert res["failed_op"].startswith(FAILED_OP_WORDS[name]), res
+                row["failed_op"] = res["failed_op"]
+            if label.startswith("gset-"):
+                assert row["route"] == "dense, " + label[5:].replace(
+                    "-", " "), row
+            if "n_states" in row:
+                assert row["launches"]["dense_sweep"] > 0, row
+                if name == "gset":
+                    scan, _ = whole_scan(lin.model, enc, dev)
+                    assert all(res[f] == scan[f] for f in fields), \
+                        (label, res, scan)
+            if row["ops"] <= 1_000:
+                o_valid, o_dead = oracle_valid(lin.model, hist)
+                assert (o_valid, o_dead) == (res["valid"],
+                                             res["dead_step"]), (label, res)
+            rows.append(row)
+            emit({"families_row": row})
+
+    per_key, keyed, bad = queue_workload()
+    checker = IndependentChecker(Linearizable("fifo-queue", device=dev))
+    checker.check({}, interleave_keyed(per_key[:10]))         # warm-up
+    torch.cuda.synchronize()
+    wk.reset_launches()
+    t0 = time.perf_counter()
+    got = checker.check({}, keyed)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    invalid = sorted(k for k, r in got["results"].items()
+                     if r["valid"] is False)
+    assert got["key_count"] == QUEUE_KEYS and invalid == [str(bad)], got
+    for k, h in enumerate(per_key):
+        r = got["results"][str(k)]
+        assert (r["valid"], r["dead_step"]) == oracle_valid(
+            checker.sub_checker.model, h), (k, r)
+    failed = got["results"][str(bad)]["failed_op"]
+    assert failed.startswith(FAILED_OP_WORDS["fifo-queue"]), failed
+    emit({"phase": "families", "ok": True, "histories": len(rows) // 2,
+          "queue_workload": {"keys": QUEUE_KEYS, "ops_per_key": QUEUE_OPS,
+                             "check_s": check_s, "invalid_keys": invalid,
+                             "failed_op": failed,
+                             "backend": got["results"]["0"]["backend"],
+                             "launches": dict(wk.launches)}})
+
+
+def phase_encode(dev) -> None:
+    """The device encoder (ops/encode_device.py) bit-identical to the host
+    expansion on the corpus, the 100k-op history and each family history,
+    with the host and device seconds of each after a warm-up; then the
+    corpus check under encode_mode=2 beside the default."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (
+        _encode_return_steps_host)
+    from jepsen_etcd_demo_tpu_torch.ops.encode_device import (
+        encode_return_steps_device)
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+
+    def both(encs):
+        encode_return_steps_device(encs[0], dev)              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [_encode_return_steps_host(e) for e in encs]
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = [encode_return_steps_device(e, dev) for e in encs]
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        for a, b in zip(host, got):
+            assert a.n_steps == b.n_steps
+            for f in ("slot_tabs", "slot_active", "targets"):
+                x, y = getattr(a, f), getattr(b, f)
+                assert x.dtype == y.dtype and np.array_equal(x, y), f
+        return {"histories": len(encs),
+                "steps": sum(s.n_steps for s in host),
+                "host_s": host_s, "device_s": dev_s}
+
+    model = CASRegister()
+    _hists, corpus, _menc = make_corpus()
+    rows = {"corpus": both(corpus)}
+    _h, enc, _cfg, _rs, _s = long_setup(model, LONG_OPS, 10,
+                                        0x10C0 + LONG_OPS)
+    rows["long_100k"] = both([enc])
+    for label, (name, h, _m) in family_histories().items():
+        rows[label] = both([Linearizable(name, device="cpu").encode(h)])
+    per_key, _keyed, _bad = queue_workload()
+    lin = Linearizable("fifo-queue", device="cpu")
+    rows["queue_workload"] = both([lin.encode(h) for h in per_key])
+
+    def corpus_check(mode: int):
+        prev = set_limits(replace(limits(), encode_mode=mode))
+        try:
+            t0 = time.perf_counter()
+            res, _ = wk.check_batch_encoded_auto(corpus, model, dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, res
+        finally:
+            set_limits(prev)
+
+    corpus_check(2)                                           # warm-up
+    times = {0: [], 2: []}
+    for mode in (0, 2, 2, 0):
+        sec, res = corpus_check(mode)
+        times[mode].append(sec)
+        if mode == 0:
+            want = res
+        assert [r["valid"] for r in res] == [True] * len(corpus)
+    assert [r["max_frontier"] for r in res] == \
+        [r["max_frontier"] for r in want]
+    emit({"phase": "encode", "ok": True, "bit_identical": rows,
+          "corpus_check_s": {"encode_mode=0": times[0],
+                             "encode_mode=2": times[2]}})
+
+
 def analyze_all(paths: dict) -> dict:
     """`cli analyze` on each {name: path}, the processes side by side:
     {name: (exit code, stdout, stderr)}."""
@@ -1715,10 +2037,66 @@ def analyze_all(paths: dict) -> dict:
     return out
 
 
+def set_history(n_adds: int, seed: int, lose: bool):
+    """A set workload run: adds 0..n_adds-1 from 10 processes (about 2%
+    indeterminate, half of those landing), then one final read of what
+    landed; with `lose`, the final read misses the first acknowledged
+    add."""
+    from jepsen_etcd_demo_tpu_torch.ops.op import Op
+
+    rng = random.Random(seed)
+    h, landed = [], []
+    for v in range(n_adds):
+        typ = "info" if rng.random() < 0.02 else "ok"
+        h += [Op(type="invoke", f="add", value=v, process=v % 10),
+              Op(type=typ, f="add", value=v, process=v % 10)]
+        if typ == "ok" or rng.random() < 0.5:
+            landed.append(v)
+    if lose:
+        landed.remove(next(op.value for op in h if op.type == "ok"))
+    return h + [Op(type="invoke", f="read", value=None, process=10),
+                Op(type="ok", f="read", value=landed, process=10)]
+
+
+def cli_family_runs(seed: int) -> dict:
+    """{name: (workload, history)} of phase_cli's runs of the other
+    workloads, each valid and invalid."""
+    from jepsen_etcd_demo_tpu_torch.models import get_model
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_gset_history,
+                                                       gen_multireg_history,
+                                                       gen_queue_history,
+                                                       interleave_keyed)
+
+    runs = {"set_valid": ("set", set_history(200, seed, False)),
+            "set_invalid": ("set", set_history(200, seed, True))}
+    h = gen_gset_history(random.Random(seed + 1), n_ops=200, n_procs=10,
+                         p_info=0.0)
+    runs["gset_valid"] = ("gset", h)
+    runs["gset_invalid"] = ("gset", certified_mutant(get_model("gset"), h,
+                                                     "gset", seed + 2))
+    h = mutex_history(200, 10, 0.005, seed + 3)
+    runs["mutex_valid"] = ("mutex", h)
+    runs["mutex_invalid"] = ("mutex", double_grant(get_model("mutex"), h))
+    h = gen_multireg_history(random.Random(seed + 4), n_ops=200, n_procs=10,
+                             p_info=0.016)
+    runs["multiregister_valid"] = ("multiregister", h)
+    runs["multiregister_invalid"] = ("multiregister", certified_mutant(
+        get_model("multi-register"), h, "multi-register", seed + 5))
+    rng = random.Random(seed + 6)
+    per_key = [gen_queue_history(rng, n_ops=QUEUE_OPS, n_procs=10)
+               for _ in range(10)]
+    runs["queue_valid"] = ("queue", interleave_keyed(per_key))
+    per_key[4] = certified_mutant(get_model("fifo-queue"), per_key[4],
+                                  "fifo-queue", seed + 7)
+    runs["queue_invalid"] = ("queue", interleave_keyed(per_key))
+    return runs
+
+
 def phase_cli() -> None:
     """`cli analyze` on a register history file, valid and invalid, and on
-    stored append run directories (history.jsonl plus a test.json naming
-    the workload), valid and invalid: exit codes 0 and 1."""
+    stored run directories (history.jsonl plus a test.json naming the
+    workload) of append, set, gset, mutex, multiregister and queue runs,
+    valid and invalid: exit codes 0 and 1."""
     from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
     from jepsen_etcd_demo_tpu_torch.utils.fuzz import (append_txn_ops,
                                                        gen_register_history)
@@ -1728,25 +2106,38 @@ def phase_cli() -> None:
     invalid = invalid_mutant(valid, 0xC12)
     txns = pool_txns(600, 0xC13)
     append_bad, _full = cycle_mutant(txns, 0xC14)
-    want = {"valid": 0, "invalid": 1, "append_valid": 0, "append_invalid": 1}
+    runs = {"append_valid": ("append", append_txn_ops(txns)),
+            "append_invalid": ("append", append_bad),
+            **cli_family_runs(0xC15)}
+    want = {"valid": 0, "invalid": 1,
+            **{name: 0 if name.endswith("_valid") else 1 for name in runs}}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for name, h in (("valid", valid), ("invalid", invalid)):
             paths[name] = Path(tmp) / f"{name}.jsonl"
             paths[name].write_text(history_to_jsonl(h))
-        for name, h in (("append_valid", append_txn_ops(txns)),
-                        ("append_invalid", append_bad)):
+        for name, (workload, h) in runs.items():
             paths[name] = run = Path(tmp) / name
             run.mkdir()
             (run / "history.jsonl").write_text(history_to_jsonl(h))
-            (run / "test.json").write_text(json.dumps({"workload": "append"}))
+            (run / "test.json").write_text(json.dumps({"workload": workload}))
         got = analyze_all(paths)
     for name, (rc, stdout, stderr) in got.items():
         assert rc == want[name], (name, rc, stdout[-2000:], stderr[-2000:])
-        if name == "invalid":
-            assert json.loads(stdout)["failed_op"], stdout
+        out = json.loads(stdout)
+        if name in ("invalid", "gset_invalid", "mutex_invalid"):
+            assert out["failed_op"], stdout
+        if name == "multiregister_invalid":
+            # A frontier of thousands of configs may pass every witness
+            # rung's effort cap: then the witness is "skipped".
+            assert out.get("failed_op") or out["witness"] == "skipped", \
+                stdout
         if name.startswith("append"):
-            assert json.loads(stdout)["backend"] == "torch-closure-cuda"
+            assert out["backend"] == "torch-closure-cuda"
+        if name.startswith("queue"):
+            assert out["key_count"] == 10, stdout
+        if name == "set_invalid":
+            assert out["lost_count"] == 1, stdout
     emit({"phase": "cli_analyze", "ok": True,
           "exit_codes": {name: r[0] for name, r in got.items()}})
 
@@ -1789,6 +2180,8 @@ def main() -> int:
             "sparse": lambda: phase_sparse(dev, kernels),
             "independent": lambda: phase_independent(dev),
             "general": lambda: phase_general(dev, global_rec),
+            "families": lambda: phase_families(dev),
+            "encode": lambda: phase_encode(dev),
             "elle": lambda: phase_elle(dev, elle_rec),
             "cli": phase_cli}
     for name in PHASES:

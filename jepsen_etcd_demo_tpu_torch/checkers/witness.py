@@ -182,7 +182,7 @@ def reconstruct_witness_windowed(enc: EncodedHistory, model: Model,
             f"dense frontier recovery infeasible: max_pending="
             f"{enc.max_pending}, max_value={enc.max_value}")
     enc_r = reslot_events(enc, k) if enc.k_slots != k else enc
-    rs = encode_return_steps(enc_r)
+    rs = encode_return_steps(enc_r, device)
     s0 = max(0, min(dead_step, rs.n_steps - 1) - window)
     configs = wgl3.recover_table3(rs, model, cfg, s0, device)
     # Event index just after the s0-th return.
@@ -235,7 +235,7 @@ def reconstruct_witness_from_sort_checkpoint(
         if 0 <= dead_step < wgl2.DEFAULT_CHUNK:
             raise WitnessEffortExceeded(0, 0)
         out = wgl2.check_steps_resumable(
-            encode_return_steps(enc_r), model, f_cap_max=1 << 20,
+            encode_return_steps(enc_r, device), model, f_cap_max=1 << 20,
             keep_death_checkpoint=True, time_budget_s=time_budget_s,
             device=device)
         if out["valid"]:

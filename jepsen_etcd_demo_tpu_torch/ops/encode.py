@@ -9,14 +9,18 @@ history becomes
           EV_RETURN - the op in `slot` returned ok; every surviving
                       linearization must have linearized it by now
           EV_PAD    - padding (no-op)
-    f:    F_READ / F_WRITE / F_CAS
+    f:    F_READ / F_WRITE / F_CAS (the register language; other models
+          have their own codes)
     a1,a2: op arguments (write value; cas old/new)
     rv:   observed value for reads (NIL when the key was missing)
 
 Completion handling: ok ops contribute an invoke and a return; info ops
 only an invoke (pending forever; indeterminate reads are dropped); fail
-ops are dropped. Each pending op occupies one of `k_slots` slots while it
-is pending, so a configuration's linearized set is a K-bit mask.
+ops are dropped. The completion's value reaches the model's codec for ok
+and info alike, so an indeterminate dequeue that recorded the element it
+claimed stays pending with that value. Each pending op occupies one of
+`k_slots` slots while it is pending, so a configuration's linearized set
+is a K-bit mask.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from .op import FAIL, INFO, INVOKE, OK, Op
 NIL = -1
 
 # F_READ is by convention the pure-observation code of every op language:
-# the encoder drops indeterminate reads without asking the model.
+# the encoder drops indeterminate reads without asking the model. Codes
+# 3..5 belong to the set and queue models (models/gset.py, queues.py).
 F_READ, F_WRITE, F_CAS = 0, 1, 2
+F_ADD, F_ENQ, F_DEQ = 3, 4, 5
 FUNC_CODES = {"read": F_READ, "write": F_WRITE, "cas": F_CAS}
 
 EV_INVOKE, EV_RETURN, EV_PAD = 0, 1, 2
@@ -287,8 +293,22 @@ class ReturnSteps:
                            self.k_slots, self.max_pending, self.max_value)
 
 
-def encode_return_steps(enc: EncodedHistory) -> ReturnSteps:
-    """The return-major encoding, vectorised: for each return event at
+def encode_return_steps(enc: EncodedHistory, device=None) -> ReturnSteps:
+    """The return-major encoding. Under ``limits().encode_mode == 2`` the
+    expansion runs on `device` (None = cuda; ops/encode_device.py) when
+    the history fits it, else on the host; the rows are the same."""
+    from .limits import limits
+
+    if limits().encode_mode == 2:
+        from . import encode_device
+
+        if encode_device.device_encode_feasible(enc):
+            return encode_device.encode_return_steps_device(enc, device)
+    return _encode_return_steps_host(enc)
+
+
+def _encode_return_steps_host(enc: EncodedHistory) -> ReturnSteps:
+    """The host expansion, vectorised: for each return event at
     position p, slot k's row is the fields of the last EV_INVOKE of slot k
     before p, and slot k is active iff its invokes before p outnumber its
     returns strictly before p (the returning op itself counts active)."""

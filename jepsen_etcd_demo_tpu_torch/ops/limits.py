@@ -53,8 +53,15 @@ class KernelLimits:
     dedup_mode: int = 0
     # Stacked-batch element budget: a batched launch of the elle closure
     # stacks at most this many f32 cells, a batched sort search at most
-    # this many slot-table rows (both chunk above it).
+    # this many slot-table rows (both chunk above it), the device encoder
+    # at most this many one-hot cells (events x slots).
     stack_element_budget: int = 1 << 26
+    # Where encode_return_steps expands events into return steps: 0 =
+    # auto, 1 = the host always, 2 = the device (ops/encode_device.py)
+    # whenever device_encode_feasible. The JAX package's auto takes the
+    # device only on its mesh-sharded batch lane, which the port does not
+    # have yet, so auto takes the host. Every mode gives the same rows.
+    encode_mode: int = 0
 
     # -- the elle closure engine (ops/cycles.py, ops/cycles_tiled.py) --
     # Route: 0 = auto (dense squaring up to elle_dense_max_nodes, weak

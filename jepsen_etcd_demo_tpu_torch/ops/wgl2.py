@@ -482,7 +482,7 @@ def check_encoded_resumable(enc: EncodedHistory, model: Model | None = None,
     # The escalation loop checks f_cap_max only after an overflow, so the
     # starting capacity is clamped too.
     f_cap = max(4, min(f_cap, f_cap_max))
-    out = check_steps_resumable(encode_return_steps(enc), model,
+    out = check_steps_resumable(encode_return_steps(enc, device), model,
                                 f_cap=f_cap, f_cap_max=f_cap_max,
                                 time_budget_s=time_budget_s,
                                 keep_death_checkpoint=keep_death_checkpoint,

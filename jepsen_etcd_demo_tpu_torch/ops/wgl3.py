@@ -503,9 +503,10 @@ def tight_k_slots(enc: EncodedHistory) -> int:
     return tight_k_for_pending(enc.max_pending)
 
 
-def step_bucket(n_steps: int) -> int:
-    """Pad scan lengths to {2^k, 1.5*2^k} buckets (at most 33% pads)."""
-    r = limits().step_bucket_floor
+def step_bucket(n_steps: int, floor: int | None = None) -> int:
+    """Pad scan lengths to {2^k, 1.5*2^k} buckets (at most 33% pads), from
+    `floor` (default limits().step_bucket_floor)."""
+    r = limits().step_bucket_floor if floor is None else floor
     while r < n_steps:
         if r + r // 2 >= n_steps:
             return r + r // 2
@@ -514,18 +515,18 @@ def step_bucket(n_steps: int) -> int:
 
 
 def batch_steps3(encs: Sequence[EncodedHistory], model: Model,
-                 cfg: DenseConfig | None = None):
+                 cfg: DenseConfig | None = None, device=None):
     """Host half of a batched launch: tighten, reslot and encode a batch
-    into per-history ReturnSteps under one shared geometry, and the
-    bucketed common step count. Raises ValueError when no shared dense
-    geometry exists."""
+    into per-history ReturnSteps under one shared geometry (expanded on
+    `device` under encode_mode 2), and the bucketed common step count.
+    Raises ValueError when no shared dense geometry exists."""
     k = max(tight_k_slots(e) for e in encs)
     if cfg is None:
         cfg = dense_config(model, k, max(e.max_value for e in encs))
     if cfg is None:
         raise ValueError("dense kernel infeasible for this batch")
     steps = [encode_return_steps(
-        reslot_events(e, k) if e.k_slots != k else e) for e in encs]
+        reslot_events(e, k) if e.k_slots != k else e, device) for e in encs]
     r_cap = step_bucket(max(s.n_steps for s in steps))
     return cfg, steps, r_cap
 

@@ -600,8 +600,8 @@ def check_encoded_general(enc: EncodedHistory, model: Model,
                              f"rung not started"}
         if enc.k_slots != tight:
             enc = reslot_events(enc, tight)
-        out = dispatch_long(encode_return_steps(enc), model, cfg_dense,
-                            device, time_budget_s=remaining)
+        out = dispatch_long(encode_return_steps(enc, device), model,
+                            cfg_dense, device, time_budget_s=remaining)
         out["op_count"] = enc.n_ops
         out["f_cap"] = cfg_dense.n_states * cfg_dense.n_masks
         out["escalations"] = 0
@@ -679,7 +679,7 @@ def _batch_general(encs, idxs, model: Model, results: list, kernels: set,
     steps, too_long = [], []
     for i, e in sub:
         rs = encode_return_steps(reslot_events(e, k) if e.k_slots != k
-                                 else e)
+                                 else e, dev)
         if rs.n_steps > lim.long_scan_max:
             too_long.append(i)
         else:
@@ -785,7 +785,7 @@ def check_batch_encoded_auto(encs: Sequence[EncodedHistory],
     if dense_idx:
         sub = [encs[i] for i in dense_idx]
         try:
-            cfg, steps, r_cap = wgl3.batch_steps3(sub, model)
+            cfg, steps, r_cap = wgl3.batch_steps3(sub, model, device=dev)
         except ValueError:
             # Each is feasible alone but no one geometry serves them all:
             # they take the general path.

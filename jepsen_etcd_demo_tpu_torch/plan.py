@@ -15,7 +15,7 @@ The sparse families are taken where ops/wgl3_kernels.sparse_selected
 holds, on either device (never past K = 18, where the sparse kernel
 stops). `plan_resumable` names the sort ladder's chunk family. The JAX
 package's lattice-sharded family waits for the multi-device slice
-(ROADMAP A-11).
+(ROADMAP §A, multi-device).
 """
 
 from __future__ import annotations

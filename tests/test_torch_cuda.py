@@ -481,3 +481,67 @@ def test_general_path_on_card_equals_plain(card):
             if f == "kernel" and str(want.get(f)).startswith("wgl3"):
                 continue
             assert got.get(f) == want.get(f), (f, got, want)
+
+
+def _gset_inputs(K: int, seed: int, device):
+    """A batch of gset histories (values 0..4, so S = 32) re-slotted to
+    mask width K, one of them mutated, prepared on `device`: (cfg, ln,
+    tg, cm). Adds from row 31 (the set {0..4}) land on row 31, so bit 31
+    of cm[..., 31, :] is set: negative as int32, a uint32 in the
+    kernels."""
+    from jepsen_etcd_demo_tpu_torch.models import GSet
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_history,
+                                                       encode_return_steps,
+                                                       reslot_events)
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_gset_history,
+                                                       mutate_family_history)
+
+    model = GSet()
+    rng = random.Random(seed)
+    steps = []
+    while len(steps) < 4:
+        h = gen_gset_history(rng, n_ops=150, n_procs=K - 2, p_info=0.02)
+        if len(steps) == 1:
+            h = mutate_family_history(rng, h, "gset")
+        enc = encode_history(h, model, k_slots=32)
+        if K - 2 <= enc.max_pending <= K:
+            steps.append(encode_return_steps(reslot_events(enc, K)))
+    cfg = wgl3.DenseConfig(k_slots=K, n_states=32, state_offset=0)
+    r_cap = wgl3.step_bucket(max(s.n_steps for s in steps))
+    ln, tg, cm = wk.prepare_colmask(model, cfg,
+                                    *wgl3.stack_steps3(steps, r_cap, device))
+    assert tuple(cm.shape[2:]) == (32, K)
+    assert bool((cm[:, :, 31, :] < 0).any())
+    return cfg, ln, tg, cm
+
+
+@pytest.mark.parametrize("K", [10, 13])
+def test_gset_column_masks_equal_plain(card, K):
+    """The register route (K = 10 at S = 32) and the shared route (K = 13)
+    on gset column masks, row 31's sign bit included: whole scan and a
+    chain of resumed windows, against the plain versions."""
+    import chip_smoke
+
+    from jepsen_etcd_demo_tpu_torch.models import GSet
+
+    cfg, ln, tg, cm = _gset_inputs(K, 0x65E7 + K, card)
+    assert chip_smoke.register_route(cfg) == (K == 10), K
+    row0 = wgl3.init_row(GSet(), cfg)
+    got = wk.dense_sweep(ln, tg, cm, cfg, row0)
+    want = wk.sweep_reference(ln, tg, cm, cfg, row0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    for b in range(tg.shape[0]):
+        n = int(ln[b])
+        one = (tg[b:b + 1, :n], cm[b:b + 1, :n])
+        # The kernel updates its carry in place: each chain starts fresh.
+        got_chain = [(T.clone(), m.clone()) for T, m in wk.window_sweep(
+            wk.dense_sweep_resumable, *one, cfg,
+            wk.start_carry(GSet(), cfg, card, False), 32)]
+        want_chain = [(T.clone(), m.clone()) for T, m in wk.window_sweep(
+            wk.resumable_reference, *one, cfg,
+            wk.start_carry(GSet(), cfg, card, False), 32)]
+        torch.cuda.synchronize()
+        assert len(got_chain) == len(want_chain) >= 3
+        for (Tk, mk), (Tp, mp) in zip(got_chain, want_chain):
+            assert torch.equal(Tk, Tp) and torch.equal(mk, mp), b

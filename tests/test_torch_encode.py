@@ -136,3 +136,178 @@ def test_limits_defaults_match():
     j, p = JL(), PL()
     for f in ("dense_cell_budget", "long_scan_max", "step_bucket_floor"):
         assert getattr(j, f) == getattr(p, f), f
+
+
+# -- the device encoder (ops/encode_device.py), on CPU tensors ---------------
+#
+# The cases of tests/test_pod_scaling.py: golden, fuzz, padded tail,
+# streaming prefix, empty history and encode_mode=2 routing. Each holds
+# the port's device expansion against its own host expansion and against
+# the JAX package's device encoder, exactly.
+
+from dataclasses import replace  # noqa: E402
+
+from jepsen_etcd_demo_tpu.ops import encode_device as jed  # noqa: E402
+from jepsen_etcd_demo_tpu.ops import limits as jlimits  # noqa: E402
+from jepsen_etcd_demo_tpu_torch.ops import encode_device as ped  # noqa: E402
+from jepsen_etcd_demo_tpu_torch.ops import limits as plimits  # noqa: E402
+
+
+def _jax_device_steps(je):
+    """The JAX package's device encode of a JAX encoding."""
+    return jed.encode_return_steps_device(je)
+
+
+def _device_matches(pe, je=None):
+    """The port's device expansion of `pe` equals its host expansion and,
+    given the JAX encoding `je`, the JAX package's device encoder."""
+    host = penc._encode_return_steps_host(pe)
+    dev = ped.encode_return_steps_device(pe, "cpu")
+    _same_steps(dev, host)
+    if je is not None:
+        _same_steps(dev, _jax_device_steps(je))
+    return dev
+
+
+def test_device_encoder_golden():
+    """A crashed cas (invoked, never completed) keeps its slot active in
+    every later step, its row pinned to the invoke's fields."""
+    h = [jop.Op(type="invoke", f="write", value=3, process=0, index=0),
+         jop.Op(type="invoke", f="read", value=None, process=1, index=1),
+         jop.Op(type="ok", f="write", value=3, process=0, index=2),
+         jop.Op(type="invoke", f="cas", value=(3, 4), process=2, index=3),
+         jop.Op(type="ok", f="read", value=3, process=1, index=4),
+         jop.Op(type="invoke", f="read", value=None, process=0, index=5),
+         jop.Op(type="ok", f="read", value=4, process=0, index=6)]
+    je = jenc.encode_register_history(h, k_slots=8)
+    dev = _device_matches(penc.encode_register_history(port_ops(h),
+                                                       k_slots=8), je)
+    assert dev.n_steps == 3
+    assert dev.slot_active[-1].sum() == 2 and dev.targets[-1] != -1
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_device_encoder_fuzz(chunk):
+    """Seeded fuzz histories (mutants, indeterminate ops, slot reuse) and
+    the golden ones, 5 of each a case."""
+    rng = random.Random(0x17E + chunk)
+    for i in range(5):
+        n_ops, n_procs = rng.randrange(5, 80), rng.randrange(2, 7)
+        seed = rng.randrange(1 << 30)
+        hj = jfuzz.gen_register_history(random.Random(seed), n_ops=n_ops,
+                                        n_procs=n_procs)
+        if i % 3 == 0:
+            hj = jfuzz.mutate_history(random.Random(seed + 1), hj)
+        _device_matches(penc.encode_register_history(port_ops(hj),
+                                                     k_slots=32),
+                        jenc.encode_register_history(hj, k_slots=32))
+    for _name, hist, _exp in GOLDEN[chunk::4]:
+        _device_matches(penc.encode_register_history(port_ops(hist),
+                                                     k_slots=16),
+                        jenc.encode_register_history(hist, k_slots=16))
+
+
+def test_device_encoder_padded_tail():
+    """Rows past n_steps on the padded step axis are padded_to's pads
+    (tabs 0, active False, targets -1), as the JAX encoder's are."""
+    import torch
+
+    hj, hp = fuzz_pair(3, n_ops=20)
+    pe = penc.encode_register_history(hp, k_slots=16)
+    host = penc._encode_return_steps_host(pe)
+    r_cap = pwgl3.step_bucket(host.n_steps + 9)
+    e_cap = ped.event_bucket(pe.n_events)
+    assert e_cap == jed.event_bucket(pe.n_events)
+    ev = torch.from_numpy(pe.padded_to(e_cap).events)
+    tabs, act, tgt = (x.numpy() for x in ped.expand(ev, pe.k_slots, r_cap))
+    want = host.padded_to(r_cap)
+    np.testing.assert_array_equal(tabs, want.slot_tabs)
+    np.testing.assert_array_equal(act, want.slot_active)
+    np.testing.assert_array_equal(tgt, want.targets)
+    je = jenc.encode_register_history(hj, k_slots=16)
+    fn = jed.cached_device_encoder(je.k_slots, e_cap, r_cap)
+    jt = [np.asarray(x) for x in fn(jed.stack_events([je], e_cap)[0])]
+    for a, b in zip((tabs, act, tgt), jt):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_encoder_streaming_prefix():
+    """The JAX package's IncrementalEncoder's stable prefixes (LIFO slot
+    reuse, the watermark rule) mid-stream and after finalize."""
+    from jepsen_etcd_demo_tpu.models import CASRegister as JM
+
+    h = jfuzz.gen_register_history(random.Random(0x5F1), n_ops=60,
+                                   n_procs=6, p_info=0.15)
+    inc = jenc.IncrementalEncoder(JM())
+    checked = 0
+    for i, op in enumerate(h):
+        inc.append(op)
+        if i % 17 == 0 and inc.rows:
+            je = inc.encoded_history(k_slots=16)
+            _device_matches(carry.encoded_from_numpy(je.to_arrays()), je)
+            checked += 1
+    inc.finalize()
+    je = inc.encoded_history(k_slots=16)
+    _device_matches(carry.encoded_from_numpy(je.to_arrays()), je)
+    assert checked > 0
+
+
+def test_device_encoder_empty_history():
+    pe = penc.encode_register_history([], k_slots=4)
+    assert not ped.device_encode_feasible(pe)
+    assert ped.returns_count(pe) == 0
+    dev = ped.encode_return_steps_device(pe, "cpu")
+    assert dev.n_steps == 0 and dev.slot_tabs.shape == (0, 4, 4)
+    je = jenc.encode_register_history([], k_slots=4)
+    assert not jed.device_encode_feasible(je)
+
+
+@pytest.mark.parametrize("family", ["gset", "fifo-queue", "multi-register"])
+def test_device_encoder_family_histories(family):
+    from jepsen_etcd_demo_tpu import models as jmodels
+
+    from torch_port_util import port_model
+
+    gen = {"gset": lambda fz, r: fz.gen_gset_history(r, n_ops=60),
+           "fifo-queue": lambda fz, r: fz.gen_queue_history(r, n_ops=20),
+           "multi-register": lambda fz, r: fz.gen_multireg_history(
+               r, n_ops=50)}[family]
+    jm = jmodels.REGISTRY[family]()
+    hj = gen(jfuzz, random.Random(5))
+    hp = gen(pfuzz, random.Random(5))
+    _device_matches(penc.encode_history(hp, port_model(jm), k_slots=16),
+                    jenc.encode_history(hj, jm, k_slots=16))
+
+
+def test_encode_mode_routes_and_defaults_to_host(monkeypatch):
+    """encode_mode defaults to the host (0, as in the JAX package); 2
+    routes encode_return_steps through the device expansion on the given
+    device, with the same rows, and an infeasible history to the host;
+    without a card, mode 2 on the default device raises rather than run
+    on the host."""
+    import torch
+
+    assert plimits.KernelLimits().encode_mode == \
+        jlimits.KernelLimits().encode_mode == 0
+    _hj, hp = fuzz_pair(11, n_ops=40)
+    pe = penc.encode_register_history(hp, k_slots=16)
+    host = penc.encode_return_steps(pe)
+    calls = []
+    real = ped.encode_return_steps_device
+    monkeypatch.setattr(ped, "encode_return_steps_device",
+                        lambda enc, device=None: calls.append(device)
+                        or real(enc, device))
+    prev = plimits.set_limits(replace(plimits.limits(), encode_mode=2))
+    try:
+        _same_steps(penc.encode_return_steps(pe, "cpu"), host)
+        assert calls == ["cpu"]
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                penc.encode_return_steps(pe)
+        plimits.set_limits(replace(plimits.limits(), encode_mode=2,
+                                   stack_element_budget=16))
+        assert not ped.device_encode_feasible(pe)
+        _same_steps(penc.encode_return_steps(pe), host)
+        assert len(calls) == 1 + (not torch.cuda.is_available())
+    finally:
+        plimits.set_limits(prev)

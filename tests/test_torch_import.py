@@ -70,7 +70,13 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.checkers.elle",
               "jepsen_etcd_demo_tpu_torch.ops.peak",
               "jepsen_etcd_demo_tpu_torch.ops.wgl2",
-              "jepsen_etcd_demo_tpu_torch.ops.canon"):
+              "jepsen_etcd_demo_tpu_torch.ops.canon",
+              "jepsen_etcd_demo_tpu_torch.ops.encode_device",
+              "jepsen_etcd_demo_tpu_torch.models.gset",
+              "jepsen_etcd_demo_tpu_torch.models.queues",
+              "jepsen_etcd_demo_tpu_torch.models.multi_register",
+              "jepsen_etcd_demo_tpu_torch.models.mutex",
+              "jepsen_etcd_demo_tpu_torch.checkers.set_checker"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):

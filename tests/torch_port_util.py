@@ -15,12 +15,27 @@ from jepsen_etcd_demo_tpu.ops.op import INVOKE, OK
 from jepsen_etcd_demo_tpu.ops.op import Op as JOp
 from jepsen_etcd_demo_tpu.utils import fuzz as jfuzz
 from jepsen_etcd_demo_tpu_torch import carry
+from jepsen_etcd_demo_tpu_torch import models as pmodels
 from jepsen_etcd_demo_tpu_torch.ops import encode as penc
 from jepsen_etcd_demo_tpu_torch.ops import limits as plimits
 from jepsen_etcd_demo_tpu_torch.ops.op import Op as POp
 from jepsen_etcd_demo_tpu_torch.utils import fuzz as pfuzz
 
 FIELDS = ("valid", "dead_step", "max_frontier", "configs_explored")
+
+
+# The constructor arguments a model takes, by name (the same in both
+# packages).
+MODEL_ARGS = {"cas-register": ("initial",), "register": ("initial",),
+              "fifo-queue": ("max_value", "capacity"),
+              "multi-register": ("n_registers", "max_value")}
+
+
+def port_model(jax_model):
+    """The port's model of the same name and geometry as a JAX one."""
+    kw = {a: getattr(jax_model, a) for a in MODEL_ARGS.get(jax_model.name,
+                                                           ())}
+    return pmodels.REGISTRY[jax_model.name](**kw)
 
 
 def port_ops(history):
@@ -80,7 +95,7 @@ def one_device(monkeypatch):
     """The JAX package sees one device: the suite's virtual 8-device CPU
     platform would send its ladder to the lattice-sharded rung and its
     batches to the sharded launches, which the port has no counterpart of
-    yet (ROADMAP A-11)."""
+    yet (ROADMAP §A, multi-device)."""
     import jax
 
     monkeypatch.setattr(jax, "device_count", lambda *a, **k: 1)
