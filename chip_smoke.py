@@ -30,7 +30,12 @@ the sweep's register and shared routes at 32 states, 1,000-op mutex and
 multi-register histories, the queue workload (100 keys x 20 ops) and an
 unordered-queue history of 31 enqueues, each valid and mutated; the
 device encoder bit-identical to the host expansion; `cli analyze` on
-every workload. It builds the CUDA kernels from csrc/ (one nvcc
+every workload. Last, whole Jepsen tests through `cli test --fake`, the
+reference's `lein run test -w register`: the tutorial default (30 s at
+10 Hz under partitions) and about 10,000 ops over ~100 keys, each checked
+on the card through the batched dense sweep, stale reads, and every other
+workload healthy and with injected faults, each run directory re-checked
+by `analyze` on the host. It builds the CUDA kernels from csrc/ (one nvcc
 per source, side by side), holds each exactly equal to its plain PyTorch
 version on the card, checks verdicts against the host oracle, the
 whole-scan kernel and the other routes, and shows through the launch
@@ -67,7 +72,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "families", "encode", "elle", "cli")
+          "families", "encode", "elle", "cli", "test")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -1204,7 +1209,24 @@ def phase_general(dev, global_rec) -> None:
     IndependentChecker and check_batch_encoded_auto (histories a-e of
     GENERAL_OPS..): verdicts held against the dense-chunked rung run
     directly or the single-key path, the mutant's witness from the
-    sort-checkpoint rung, the global tier's launches on the main path."""
+    sort-checkpoint rung, the global tier's launches on the main path.
+    The sort search runs without subsumption (limits.subsume_mode 1, the
+    JAX package's search): with it, these partitioned keys never outgrow
+    the sort ladder, and the rungs past it would go unused (phase `test`
+    runs the default)."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+
+    prev = set_limits(replace(limits(), subsume_mode=1))
+    try:
+        general_paths(dev, global_rec)
+    finally:
+        set_limits(prev)
+
+
+def general_paths(dev, global_rec) -> None:
+    """phase_general's histories a-e."""
     from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
                                                      Linearizable)
     from jepsen_etcd_demo_tpu_torch.checkers import witness
@@ -2093,10 +2115,11 @@ def cli_family_runs(seed: int) -> dict:
 
 
 def phase_cli() -> None:
-    """`cli analyze` on a register history file, valid and invalid, and on
-    stored run directories (history.jsonl plus a test.json naming the
-    workload) of append, set, gset, mutex, multiregister and queue runs,
-    valid and invalid: exit codes 0 and 1."""
+    """`cli analyze` on stored run directories (history.jsonl, and a
+    test.json naming the workload except for the register runs) of
+    register, append, set, gset, mutex, multiregister and queue runs,
+    valid and invalid: exit codes 0 and 1, only {"valid"} on stdout, the
+    checkers' fields from the results.json analyze writes."""
     from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
     from jepsen_etcd_demo_tpu_torch.utils.fuzz import (append_txn_ops,
                                                        gen_register_history)
@@ -2106,40 +2129,215 @@ def phase_cli() -> None:
     invalid = invalid_mutant(valid, 0xC12)
     txns = pool_txns(600, 0xC13)
     append_bad, _full = cycle_mutant(txns, 0xC14)
-    runs = {"append_valid": ("append", append_txn_ops(txns)),
+    runs = {"valid": (None, valid), "invalid": (None, invalid),
+            "append_valid": ("append", append_txn_ops(txns)),
             "append_invalid": ("append", append_bad),
             **cli_family_runs(0xC15)}
-    want = {"valid": 0, "invalid": 1,
-            **{name: 0 if name.endswith("_valid") else 1 for name in runs}}
+    want = {name: 0 if name.endswith("valid") and "invalid" not in name
+            else 1 for name in runs}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
-        for name, h in (("valid", valid), ("invalid", invalid)):
-            paths[name] = Path(tmp) / f"{name}.jsonl"
-            paths[name].write_text(history_to_jsonl(h))
         for name, (workload, h) in runs.items():
             paths[name] = run = Path(tmp) / name
             run.mkdir()
             (run / "history.jsonl").write_text(history_to_jsonl(h))
-            (run / "test.json").write_text(json.dumps({"workload": workload}))
+            if workload is not None:
+                (run / "test.json").write_text(
+                    json.dumps({"workload": workload}))
         got = analyze_all(paths)
+        results = {name: json.loads((path / "results.json").read_text())
+                   for name, path in paths.items()}
     for name, (rc, stdout, stderr) in got.items():
         assert rc == want[name], (name, rc, stdout[-2000:], stderr[-2000:])
-        out = json.loads(stdout)
+        assert json.loads(stdout) == {"valid": rc == 0}, (name, stdout)
+        res = results[name]
+        assert res["valid"] is (rc == 0) and res["perf"]["valid"], name
+        out = res["indep"]
         if name in ("invalid", "gset_invalid", "mutex_invalid"):
-            assert out["failed_op"], stdout
+            assert out["linear"]["failed_op"], out
         if name == "multiregister_invalid":
             # A frontier of thousands of configs may pass every witness
             # rung's effort cap: then the witness is "skipped".
-            assert out.get("failed_op") or out["witness"] == "skipped", \
-                stdout
+            assert (out["linear"].get("failed_op")
+                    or out["linear"]["witness"] == "skipped"), out
         if name.startswith("append"):
-            assert out["backend"] == "torch-closure-cuda"
+            assert out["elle"]["backend"] == "torch-closure-cuda"
         if name.startswith("queue"):
-            assert out["key_count"] == 10, stdout
+            assert out["key_count"] == 10, out
         if name == "set_invalid":
-            assert out["lost_count"] == 1, stdout
+            assert out["lost_count"] == 1, out
     emit({"phase": "cli_analyze", "ok": True,
           "exit_codes": {name: r[0] for name, r in got.items()}})
+
+
+# Phase `test`: whole Jepsen tests through `cli test --fake`, each
+# (name, flags, exit code). (a) is the tutorial default (BASELINE.json
+# configs[0]) and (b) configs[3]'s size over many keys, both under the
+# partition nemesis: a partition leaves some of their keys with tens of
+# forever-pending writes, past the dense tables (the sort search decides
+# them). The short runs' recovery wait is 1 s.
+TEST_RUNS = (
+    ("a", ["-w", "register", "--time-limit", "30", "--rate", "10",
+           "--concurrency", "10", "--recovery-wait", "1", "--seed", "1"], 0),
+    ("b", ["-w", "register", "--time-limit", "6", "--rate", "3000",
+           "--ops-per-key", "100", "--recovery-wait", "1", "--seed", "2"], 0),
+    *((name, [*flags, "--time-limit", "2", "--recovery-wait", "1"], rc)
+      for name, flags, rc in (
+          ("c", ["-w", "register", "--stale-read-prob", "0.8",
+                 "--no-nemesis", "--rate", "200"], 1),
+          ("d", ["-w", "set", "--rate", "100"], 0),
+          ("d_lost", ["-w", "set", "--rate", "100",
+                      "--lost-write-prob", "0.3"], 1),
+          *((f"e_{w}", ["-w", w, "--rate", "100",
+                        *(["--nemesis", "noop"]
+                          if w in ("mutex", "multiregister") else [])], 0)
+            for w in ("queue", "multiregister", "gset", "mutex", "append",
+                      "txnregister")),
+          ("f_txnregister", ["-w", "txnregister", "--rate", "100",
+                             "--stale-read-prob", "0.5", "--elle-realtime"],
+           1),
+          ("f_queue", ["-w", "queue", "--rate", "100",
+                       "--reorder-prob", "0.5"], 1))),
+)
+TEST_MIN_OPS = {"b": 8_000}
+LINEAR_FIELDS = ("valid", "dead_step", "max_frontier", "configs_explored",
+                 "op_count")
+
+
+def verdict_fields(res: dict) -> dict:
+    """What analyze must reproduce of a run's results.json: the top-level
+    valid and, per key (or for the whole history), the linear fields, or
+    the elle / set checker's verdict."""
+    indep = res["indep"]
+    out = {"valid": res["valid"], "indep_valid": indep["valid"]}
+    if "results" in indep:
+        out["linear"] = {k: {f: r["linear"].get(f) for f in LINEAR_FIELDS}
+                         for k, r in indep["results"].items()}
+    elif "linear" in indep:
+        out["linear"] = {f: indep["linear"].get(f) for f in LINEAR_FIELDS}
+    elif "elle" in indep:
+        out["elle"] = {f: indep["elle"].get(f)
+                       for f in ("valid", "anomaly_types", "txn_count")}
+    else:
+        out["set"] = {f: indep.get(f) for f in ("lost_count", "ok_count")}
+    return out
+
+
+def key_routes(res: dict) -> dict:
+    """{backend: keys} of a keyed run's linearizability results."""
+    routes: dict = {}
+    for r in res["indep"].get("results", {}).values():
+        b = r["linear"].get("backend", "none")
+        routes[b] = routes.get(b, 0) + 1
+    return routes
+
+
+def run_cli(argv: list[str]) -> tuple[int, list[str]]:
+    """cli.main(argv) in this process: (exit code, its stdout lines)."""
+    import contextlib
+    import io
+
+    from jepsen_etcd_demo_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_test(dev) -> None:
+    """Whole tests through the port's `test` verb (TEST_RUNS): the fake
+    cluster records each history, the card checks it, the store keeps the
+    run directory. Each run's check is timed by wrapping the test's
+    checker; the dense sweep's launches are counted per run. Every run
+    directory is re-checked by `analyze --device cpu` (the plain versions),
+    which must give the same verdicts and linear fields; run (c) also goes
+    through `python -m jepsen_etcd_demo_tpu_torch.cli test`."""
+    from jepsen_etcd_demo_tpu_torch import compose
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.store import Store
+
+    check_s: list[float] = []
+    fake_test = compose.fake_test
+
+    def timed_fake_test(opts, store=None):
+        test = fake_test(opts, store)
+        check = test["checker"].check
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return check(*args, **kw)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                check_s.append(time.perf_counter() - t0)
+
+        test["checker"].check = timed
+        return test
+
+    rows = {}
+    compose.fake_test = timed_fake_test
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, flags, want_rc in TEST_RUNS:
+                store = Path(tmp) / name
+                argv = ["test", "--fake", *flags, "--store", str(store),
+                        "--device", dev.type]
+                wk.reset_launches()
+                check_s.clear()
+                t0 = time.perf_counter()
+                rc, lines = run_cli(argv)
+                wall_s = time.perf_counter() - t0
+                launches = dict(wk.launches)
+                line = json.loads(lines[-1])
+                run_dir = Store(store).latest().path
+                res = json.loads((run_dir / "results.json").read_text())
+                row = {"workload": flags[1], "flags": flags, "rc": rc,
+                       "valid": line["valid"], "op_count": line["op_count"],
+                       "run_seconds": line["run_seconds"], "wall_s": wall_s,
+                       "check_s": check_s[0],
+                       "key_count": res["indep"].get("key_count"),
+                       "routes": key_routes(res), "launches": launches}
+                emit({"phase": "test_run", "name": name, **row})
+                assert rc == want_rc, (name, row, res)
+                assert line["op_count"] >= TEST_MIN_OPS.get(name, 50), row
+                if name in ("a", "b"):
+                    assert launches["dense_sweep"] >= 1, row
+                if name == "c":
+                    bad = [r for r in res["indep"]["results"].values()
+                           if r["valid"] is False]
+                    assert bad and bad[0]["linear"]["failed_op"], res
+                files = {p.name for p in run_dir.iterdir()}
+                assert {"test.json", "history.jsonl", "results.json",
+                        "jepsen.log"} <= files, files
+                want = verdict_fields(res)
+                t0 = time.perf_counter()
+                arc, alines = run_cli(["analyze", str(run_dir), "--device",
+                                       "cpu"])
+                row["recheck_s"] = time.perf_counter() - t0
+                again = json.loads((run_dir / "results.json").read_text())
+                assert arc == rc and json.loads(alines[-1]) == {
+                    "valid": line["valid"]}, (name, arc, alines)
+                assert verdict_fields(again) == want, (name, again, want)
+                emit({"phase": "test_recheck", "name": name, "device": "cpu",
+                      "seconds": row["recheck_s"]})
+                rows[name] = row
+            sub = subprocess.run(
+                [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
+                 "test", "--fake", *TEST_RUNS[2][1], "--store",
+                 str(Path(tmp) / "c_module"), "--device", dev.type],
+                cwd=ROOT, capture_output=True,
+                text=True, timeout=600)
+            assert sub.returncode == 1, sub.stderr[-3000:]
+            assert json.loads(sub.stdout.splitlines()[-1])["valid"] is False
+    finally:
+        compose.fake_test = fake_test
+    emit({"phase": "test", "ok": True,
+          "exit_codes": {n: r["rc"] for n, r in rows.items()},
+          "check_s": {n: rows[n]["check_s"] for n in ("a", "b")},
+          "op_count": {n: rows[n]["op_count"] for n in ("a", "b")},
+          "key_count": {n: rows[n]["key_count"] for n in ("a", "b")}})
 
 
 def main() -> int:
@@ -2183,7 +2381,8 @@ def main() -> int:
             "families": lambda: phase_families(dev),
             "encode": lambda: phase_encode(dev),
             "elle": lambda: phase_elle(dev, elle_rec),
-            "cli": phase_cli}
+            "cli": phase_cli,
+            "test": lambda: phase_test(dev)}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()

@@ -9,8 +9,9 @@ the windowed long sweep; one that no dense table holds (many pending
 ops, huge values) takes the general path's ladder (the sort search, then
 the dense sweep under the chunked budget, else "unknown"). Results keep
 the JAX checker's schema; an invalid result names the failed op and
-carries the counterexample witness (checkers/witness.py), written to
-``opts["store_dir"]`` when given.
+carries the counterexample witness (checkers/witness.py). With
+``opts["store_dir"]``, the witness and the encoded history
+(``history[-<key>].npz``) are written there.
 """
 
 from __future__ import annotations
@@ -73,6 +74,14 @@ class Linearizable(Checker):
         # encoder saw.
         history = self.model.prepare_history(history)
         enc = self._encode_translated(history)
+        store_dir = (opts or {}).get("store_dir")
+        if store_dir:
+            # Empty encodings included: the store holds the checker's
+            # input for every key.
+            from ..store.store import write_encoded_tensor
+
+            write_encoded_tensor(store_dir, (opts or {}).get("key"), enc,
+                                 self.model.name)
         if enc.n_events == 0:
             return {"valid": True, "op_count": 0, "backend": self.backend}
         # f_cap_floor: the independent checker's batched sort tiers may

@@ -192,12 +192,55 @@ def history_classes(pairs: np.ndarray, k_slots: int, device
     return table, index
 
 
+def batch_classes(steps, r_cap: int, device
+                  ) -> tuple[StepClasses, torch.Tensor] | None:
+    """The classes of a batch of histories of one width, for the batched
+    sort tiers: (every distinct step's classes stacked, with an empty
+    class set first: same float32[M, K, K], rank int64[M, K], member
+    bool[M, K]; int64[B, r_cap], each step's index into them), or None
+    when no history has a symmetry."""
+    K = steps[0].k_slots
+    tables = [(np.zeros((K, K), np.float32), np.zeros(K, np.int64),
+               np.zeros(K, bool))]
+    index = np.zeros((len(steps), r_cap), np.int64)
+    for b, rs in enumerate(steps):
+        pairs = canon_pairs(rs)
+        if pairs is None:
+            continue
+        table, idx = history_classes(pairs[:rs.n_steps], K, "cpu")
+        ids = []
+        for c in table:
+            ids.append(0 if c is None else len(tables))
+            if c is not None:
+                tables.append((c.same.numpy(), c.rank.numpy(),
+                               c.member.numpy()))
+        index[b, :rs.n_steps] = np.asarray(ids)[idx]
+    if len(tables) == 1:
+        return None
+    same, rank, member = (torch.from_numpy(np.stack(a)).to(device)
+                          for a in zip(*tables))
+    return (StepClasses(same=same, rank=rank, member=member),
+            torch.from_numpy(index).to(device))
+
+
+def step_batch_classes(table: StepClasses, index: torch.Tensor
+                       ) -> StepClasses:
+    """The batch's classes at one step: index int64[B] into batch_classes'
+    table -> same [B, K, K], rank [B, K], member [B, K]."""
+    return StepClasses(same=table.same[index], rank=table.rank[index],
+                       member=table.member[index])
+
+
 def _pack_low(bits: torch.Tensor, cls: StepClasses) -> torch.Tensor:
     """bits int64[..., K] of 0/1 -> each class's set bits moved to its
-    lowest slots (other slots unchanged)."""
+    lowest slots (other slots unchanged). Batched classes (same
+    [B, K, K]) take bits int64[B, N, K]."""
+    rank, member = cls.rank, cls.member
+    if cls.same.dim() == 3:
+        rank, member = rank[:, None, :], member[:, None, :]
     counts = torch.matmul(bits.to(torch.float32), cls.same)  # [..., K]
-    packed = (cls.rank < counts.round().to(torch.int64)).to(torch.int64)
-    return torch.where(cls.member, packed, bits)
+    packed = (rank < counts.round().to(torch.int64)).to(torch.int64)
+    return torch.where(member, packed, bits)
 
 
 def canon_keys_packed(keys: torch.Tensor, cls: StepClasses, sbits: int,
@@ -205,7 +248,7 @@ def canon_keys_packed(keys: torch.Tensor, cls: StepClasses, sbits: int,
     """Canonicalise packed sort keys int64[..., N] (``state | mask <<
     sbits``, uint32 bit patterns): the step's network applied to every
     key but the `invalid` sentinel."""
-    K = cls.rank.shape[0]
+    K = cls.rank.shape[-1]
     shifts = torch.arange(K, device=keys.device) + sbits
     bits = (keys[..., None] >> shifts) & 1
     new = (_pack_low(bits, cls) << shifts).sum(-1)
@@ -218,7 +261,7 @@ def canon_masks_words(masks: torch.Tensor, cls: StepClasses
     """Canonicalise explicit mask rows int64[..., N, W] (uint32 words,
     slot j at bit j % 32 of word j // 32): the step's network applied to
     every row."""
-    K = cls.rank.shape[0]
+    K = cls.rank.shape[-1]
     W = masks.shape[-1]
     j = torch.arange(K, device=masks.device)
     word, bit = j // 32, j % 32

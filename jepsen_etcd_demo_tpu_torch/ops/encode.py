@@ -45,6 +45,10 @@ EV_INVOKE, EV_RETURN, EV_PAD = 0, 1, 2
 
 EVENT_WIDTH = 6  # (kind, slot, f, a1, a2, rv)
 
+# Version of the event layout, the JAX package's: stored tensors and cache
+# keys made under another version are not read back.
+ENCODING_VERSION = 1
+
 
 class EncodeError(ValueError):
     pass
@@ -91,11 +95,23 @@ class EncodedHistory:
                               self.max_pending, self.max_value)
 
     def to_arrays(self) -> dict[str, np.ndarray]:
+        """The npz form (trimmed to the real events) of the store's
+        history-tensor files."""
         return {"events": np.asarray(self.events[: self.n_events]),
                 "n_ops": np.asarray(self.n_ops),
                 "k_slots": np.asarray(self.k_slots),
                 "max_pending": np.asarray(self.max_pending),
                 "max_value": np.asarray(self.max_value)}
+
+    @classmethod
+    def from_arrays(cls, z) -> "EncodedHistory":
+        """Inverse of to_arrays over any mapping of arrays (an open
+        np.load handle included)."""
+        events = np.asarray(z["events"], dtype=np.int32)
+        return cls(events=events, n_events=int(events.shape[0]),
+                   n_ops=int(z["n_ops"]), k_slots=int(z["k_slots"]),
+                   max_pending=int(z["max_pending"]),
+                   max_value=int(z["max_value"]))
 
 
 def _encode_value(v: Any) -> int:

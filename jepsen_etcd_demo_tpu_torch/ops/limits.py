@@ -51,6 +51,10 @@ class KernelLimits:
     # auto (on for the resumable sort ladder, off for table sweeps), 1 =
     # off, 2 = force.
     dedup_mode: int = 0
+    # Subsumption of the sort search's frontier over forever-pending ops
+    # (ops/subsume.py), batched tiers and ladder alike: 0 = on unless
+    # dedup_mode is 1, 1 = off (the JAX package's search).
+    subsume_mode: int = 0
     # Stacked-batch element budget: a batched launch of the elle closure
     # stacks at most this many f32 cells, a batched sort search at most
     # this many slot-table rows (both chunk above it), the device encoder

@@ -27,7 +27,10 @@ so does the port: torch ops on the card (sort, cumsum, scatter). The
 frontier after every step equals the JAX carry bit for bit: the sort
 order is the same (invalid flag, then state, then mask word 0, word 1,
 ...) and, where (state, mask) fits one uint32 key, the packed dedup sorts
-the keys twice with 0xFFFFFFFF as the invalid key, as there.
+the keys twice with 0xFFFFFFFF as the invalid key, as there. That holds
+with subsumption off (`limits.subsume_mode` 1): by default a step over
+forever-pending ops also drops the configs another subsumes
+(ops/subsume.py), which the JAX package does not.
 """
 
 from __future__ import annotations
@@ -190,6 +193,7 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
     `classes` (ops/canon.StepClasses of this step) every expansion round
     canonicalises the frontier and the candidates before the dedup."""
     from .canon import canon_keys_packed, canon_masks_words
+    from .subsume import subsume
 
     word_of, bit_of, slot_bitmask = _slot_constants(cfg, device)
     f_cap, W = cfg.f_cap, cfg.words
@@ -209,7 +213,7 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
                 torch.where(valid[..., None], masks, 0), valid)
 
     def step(carry: Carry, slot_tab, slot_active, target, idx: int,
-             classes=None) -> Carry:
+             classes=None, forever=None) -> Carry:
         B, F = carry.valid.shape
         is_pad = target < 0
         tgt = target.clamp(min=0).to(torch.int64)
@@ -228,6 +232,8 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
 
         def expand_once(s, m, v):
             nxt, cand = candidates(s, m, v)
+            if forever is not None:
+                return expand_subsumed(s, m, v, nxt, cand)
             if use_packed:
                 cand_words = m[:, :, None, 0] | slot_bitmask[None, None, :, 0]
                 keys = torch.cat([pack(s, m[..., 0], v),
@@ -248,6 +254,31 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
                 all_m = canon_masks_words(all_m, classes)
             return _dedup(all_s, all_m, all_v, f_cap)
 
+        def expand_subsumed(s, m, v, nxt, cand):
+            # Every unique config first, the subsumed ones dropped, then
+            # the capacity: only configs no other subsumes overflow.
+            cand_masks = m[:, :, None, :] | slot_bitmask[None, None]
+            all_s = torch.cat([s, nxt.reshape(B, -1)], dim=1)
+            all_m = torch.cat([m, cand_masks.reshape(B, -1, W)], dim=1)
+            all_v = torch.cat([v, cand.reshape(B, -1)], dim=1)
+            # The live rows first and the rest cut: few of the F * (K + 1)
+            # candidates fire.
+            live = torch.sort((~all_v).to(torch.uint8), dim=1,
+                              stable=True)[1][:, :max(1, int(
+                                  all_v.sum(1).max()))]
+            all_s, all_v = all_s.gather(1, live), all_v.gather(1, live)
+            all_m = all_m.gather(1, live[..., None].expand(-1, -1, W))
+            if classes is not None:
+                all_m = canon_masks_words(all_m, classes)
+            u_s, u_m, u_v, _n = _dedup(all_s, all_m, all_v, all_s.shape[1])
+            u_v = subsume(u_s, u_m, u_v, forever)
+            return _dedup(u_s, u_m, u_v, f_cap)
+
+        def same_set(s, m, v, s2, m2, v2):
+            """Both frontiers hold the same configs (sorted, compacted)."""
+            return (((s == s2) & (m == m2).all(-1)) | ~(v | v2)).all(1) \
+                & (v == v2).all(1)
+
         s, m, v = carry.states, carry.masks, carry.valid
         n = v.sum(1)
         overflow = carry.overflow
@@ -260,10 +291,13 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
                 break
             s2, m2, v2, n_unique = expand_once(s, m, v)
             n_now = n_unique.clamp(max=f_cap)
+            # Subsumption can replace configs without growing the count.
+            grew = (n_now > n if forever is None
+                    else ~same_set(s, m, v, s2, m2, v2))
             if bool(active.all()):
                 s, m, v = s2, m2, v2
                 overflow = overflow | (n_unique > f_cap)
-                changed = n_now > n
+                changed = grew
                 n = n_now
             else:
                 a1d = active[:, None]
@@ -272,7 +306,7 @@ def make_step_fn2(model: Model, cfg: WGLConfig, device):
                 v = torch.where(a1d, v2, v)
                 overflow = torch.where(active, overflow | (n_unique > f_cap),
                                        overflow)
-                changed = torch.where(active, n_now > n, changed)
+                changed = torch.where(active, grew, changed)
                 n = torch.where(active, n_now, n)
             it = it + active.to(it.dtype)
 
@@ -325,13 +359,19 @@ def _step_inputs(rs: ReturnSteps, dev, n: int | None = None):
 
 
 def check_steps_batch(slot_tabs: torch.Tensor, slot_active: torch.Tensor,
-                      targets: torch.Tensor, model: Model, cfg: WGLConfig
-                      ) -> dict[str, torch.Tensor]:
+                      targets: torch.Tensor, model: Model, cfg: WGLConfig,
+                      forever: torch.Tensor | None = None,
+                      classes=None) -> dict[str, torch.Tensor]:
     """The whole scan of a batch at one capacity, on the inputs' device:
     slot_tabs int32[B,R,K,4], slot_active bool[B,R,K], targets int32[B,R]
     (-1 = pad, a suffix) -> {survived, overflow, dead_step, max_frontier}
-    tensors [B]. Stops once every history is dead or past its steps (a
-    pad or a step after death changes none of the fields)."""
+    tensors [B]. With `forever` (int64[B,R,W], ops/subsume) each step
+    drops the subsumed configs, canonicalised first under `classes`
+    (ops/canon.batch_classes) when given. Stops once every history is
+    dead or past its steps (a pad or a step after death changes none of
+    the fields)."""
+    from .canon import step_batch_classes
+
     B, R = targets.shape
     dev = targets.device
     step = make_step_fn2(model, cfg, dev)
@@ -341,8 +381,12 @@ def check_steps_batch(slot_tabs: torch.Tensor, slot_active: torch.Tensor,
         live = (~carry.dead) & (steps > r)
         if not bool(live.any()):
             break
+        pm = (None if forever is None or not bool(forever[:, r].any())
+              else forever[:, r])
+        cls = (None if pm is None or classes is None
+               else step_batch_classes(classes[0], classes[1][:, r]))
         carry = step(carry, slot_tabs[:, r], slot_active[:, r],
-                     targets[:, r], r)
+                     targets[:, r], r, cls, pm)
     return {"survived": ~carry.dead, "overflow": carry.overflow,
             "dead_step": carry.dead_step, "max_frontier": carry.max_frontier}
 
@@ -365,6 +409,7 @@ def check_steps_resumable(rs: ReturnSteps, model: Model | None = None,
     masks uint32[F, W], valid bool[F], step): the exact frontier at the
     start of the chunk the search died in."""
     from .canon import history_canon_pairs, history_classes
+    from .subsume import history_forever_masks
 
     if model is None:
         from ..models import CASRegister
@@ -376,6 +421,7 @@ def check_steps_resumable(rs: ReturnSteps, model: Model | None = None,
     pairs = history_canon_pairs(rs)
     classes = (None if pairs is None
                else history_classes(pairs[:n], rs.k_slots, dev))
+    forever = history_forever_masks(rs, dev)
     cfg = config_for(rs, model, f_cap)
     carry = _init_carry2(model, cfg, 1, dev)
     escalations = 0
@@ -400,8 +446,10 @@ def check_steps_resumable(rs: ReturnSteps, model: Model | None = None,
         r = c0
         while r < min(c0 + chunk, n):
             cls = None if classes is None else classes[0][classes[1][r]]
+            pm = (None if forever is None or not bool(forever[r].any())
+                  else forever[r:r + 1])
             out = step(out, tabs[r:r + 1], act[r:r + 1], tgt[r:r + 1], r,
-                       cls)
+                       cls, pm)
             r += 1
             # A chunk that overflowed runs again; one that died is done.
             if any(torch.cat([out.dead, out.overflow]).tolist()):

@@ -670,6 +670,8 @@ def _batch_general(encs, idxs, model: Model, results: list, kernels: set,
     slot tables within stack_element_budget."""
     from . import wgl2
     from .encode import encode_return_steps, reslot_events
+    from .canon import batch_classes
+    from .subsume import stacked_forever_masks
 
     dev = resolve_device(device)
     sub = [(i, encs[i]) for i in idxs]
@@ -701,9 +703,13 @@ def _batch_general(encs, idxs, model: Model, results: list, kernels: set,
             part = tier_steps[c0:c0 + chunk]
             tabs, act, tgt = wgl3.stack_steps3([s for _, s in part], r_cap,
                                                dev)
+            forever = stacked_forever_masks([s for _, s in part], r_cap,
+                                            dev)
+            classes = (None if forever is None else
+                       batch_classes([s for _, s in part], r_cap, dev))
             out = {name: v.cpu().tolist() for name, v in
-                   wgl2.check_steps_batch(tabs, act, tgt, model,
-                                          cfg).items()}
+                   wgl2.check_steps_batch(tabs, act, tgt, model, cfg,
+                                          forever, classes).items()}
             for j, (i, s) in enumerate(part):
                 one = {name: out[name][j] for name in out}
                 v = wgl3.verdict(one)

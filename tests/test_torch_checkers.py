@@ -154,6 +154,10 @@ def test_long_history_takes_long_route_and_wide_one_general_path():
     prev = set_limits(KernelLimits(long_scan_max=64, long_window_steps=48))
     try:
         got = Linearizable(device="cpu").check({}, hp)
+        subsumed = Linearizable(device="cpu").check({}, wide + hp)
+        # The JAX package's search frontier for frontier: no subsumption.
+        set_limits(KernelLimits(long_scan_max=64, long_window_steps=48,
+                                subsume_mode=1))
         general = Linearizable(device="cpu").check({}, wide + hp)
     finally:
         set_limits(prev)
@@ -164,6 +168,10 @@ def test_long_history_takes_long_route_and_wide_one_general_path():
     assert general["kernel"] == "wgl2-sort-resumable"
     for f in ("valid", "dead_step", "max_frontier", "failed_op", "witness"):
         assert general.get(f) == want.get(f), f
+    # Subsumption keeps the verdict and shrinks the frontier.
+    for f in ("valid", "dead_step", "kernel", "failed_op", "witness"):
+        assert subsumed.get(f) == general.get(f), f
+    assert subsumed["max_frontier"] < general["max_frontier"]
 
 
 def _write(tmp_path, name, history):
@@ -172,30 +180,62 @@ def _write(tmp_path, name, history):
     return p
 
 
+def _results(run) -> dict:
+    return json.loads((run / "results.json").read_text())
+
+
+def _run_dir(tmp_path, name, history, test: dict | None = None):
+    run = tmp_path / name
+    run.mkdir()
+    _write(run, "history.jsonl", history)
+    if test is not None:
+        (run / "test.json").write_text(json.dumps(test))
+    return run
+
+
 def test_cli_analyze_exit_codes(tmp_path, capsys):
+    """analyze prints only {"valid"} and exits 0 iff valid, else 1, as the
+    JAX package's does; a run directory gets results.json, a bare history
+    file nothing."""
     valid = port_ops(GOLD["info-write-late-effect"][0])
     invalid = port_ops(GOLD["stale-read-after-overwrite"][0])
     v, iv = _write(tmp_path, "v.jsonl", valid), _write(tmp_path, "iv.jsonl",
                                                        invalid)
     assert cli.main(["analyze", str(v), "--device", "cpu"]) == 0
-    assert json.loads(capsys.readouterr().out)["valid"] is True
+    assert json.loads(capsys.readouterr().out) == {"valid": True}
     assert cli.main(["analyze", str(iv), "--device", "cpu"]) == 1
-    out = json.loads(capsys.readouterr().out)
-    assert out["valid"] is False and out["dead_step"] >= 0
+    assert json.loads(capsys.readouterr().out) == {"valid": False}
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["iv.jsonl",
+                                                          "v.jsonl"]
+    bad = _run_dir(tmp_path, "bad", invalid)
+    assert cli.main(["analyze", str(bad), "--device", "cpu"]) == 1
+    assert json.loads(capsys.readouterr().out) == {"valid": False}
+    out = _results(bad)
+    lin = out["indep"]["linear"]
+    assert out["valid"] is False and lin["valid"] is False
+    assert lin["dead_step"] >= 0 and lin["failed_op"]
+    assert out["perf"]["valid"] is True
     assert cli.main(["analyze", str(tmp_path / "missing.jsonl"),
-                     "--device", "cpu"]) == 2
-    run = tmp_path / "run"
-    run.mkdir()
-    _write(run, "history.jsonl", valid)
+                     "--device", "cpu"]) == 1
+    assert json.loads(capsys.readouterr().out) == {"valid": "unknown"}
+    run = _run_dir(tmp_path, "run", valid)
     assert cli.main(["analyze", str(run), "--device", "cpu"]) == 0
+    assert _results(run)["valid"] is True
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert cli.main(["analyze", str(empty), "--device", "cpu"]) == 1
+    out = _results(empty)
+    assert out["valid"] == "unknown" and "history.jsonl" in out["error"]
+    capsys.readouterr()
 
 
 def test_cli_keyed_history_and_model_flag(tmp_path, capsys):
     _, hp = _keyed(15, n_keys=3)
-    p = _write(tmp_path, "k.jsonl", hp)
-    rc = cli.main(["analyze", str(p), "--device", "cpu"])
-    out = json.loads(capsys.readouterr().out)
+    run = _run_dir(tmp_path, "k", hp)
+    rc = cli.main(["analyze", str(run), "--device", "cpu"])
+    out = _results(run)["indep"]
     assert out["key_count"] == 3 and rc == (0 if out["valid"] else 1)
+    assert sorted(out["results"]) == ["0", "1", "2"]
     cas_only = port_ops(GOLD["cas-success"][0])
     assert not cli.is_keyed(cas_only)
     c = _write(tmp_path, "cas.jsonl", cas_only)
@@ -232,7 +272,8 @@ def test_cli_workload_flag_checks_register_as_cas_register(tmp_path, capsys,
     package's cas-register checker finds it. --model overrides."""
     run, h = _c1_run(tmp_path, {"workload": "register"})
     assert cli.main(["analyze", str(run), "--device", "cpu", *argv]) == rc
-    out = json.loads(capsys.readouterr().out)
+    assert json.loads(capsys.readouterr().out)["valid"] is (rc == 0)
+    out = _results(run)["indep"]
     want = JInd(JLin("cas-register")).check({}, jax_ops(h))
     assert want["valid"] is True
     assert out["valid"] is (want["valid"] if rc == 0 else False)
@@ -253,28 +294,30 @@ def test_cli_check_budget_reaches_linearizable(tmp_path, test):
     run, h = _c1_run(tmp_path, {"workload": "register", **test})
     assert cli.check_budget(test) == jbudget(test)
     args = argparse.Namespace(workload=None, model=None, device="cpu")
-    checker = cli._checker(args, run, h)
+    checker = cli._checker(args, cli._read_test(run), h)
     assert isinstance(checker, IndependentChecker)
-    assert checker.sub_checker.time_budget_s == jbudget(test)
-    assert checker.sub_checker.model.name == "cas-register"
+    lin = checker.sub_checker.checkers["linear"]
+    assert lin.time_budget_s == jbudget(test)
+    assert lin.model.name == "cas-register"
 
 
 def test_cli_expired_check_budget_answers_unknown(tmp_path, capsys):
-    """A check_budget_s the long route outlasts gives "unknown" (exit 2),
-    so the budget reaches the search itself."""
+    """A check_budget_s the long route outlasts gives "unknown" (exit 1,
+    as the JAX package exits for anything not valid), so the budget
+    reaches the search itself."""
     _, hp = fuzz_pair(30, n_ops=200, n_procs=4)
-    run = tmp_path / "run"
-    run.mkdir()
-    _write(run, "history.jsonl", hp)
+    run = _run_dir(tmp_path, "run", hp)
     prev = set_limits(KernelLimits(long_scan_max=64, long_window_steps=48))
     try:
         (run / "test.json").write_text(json.dumps({"check_budget_s": 1e-9}))
-        assert cli.main(["analyze", str(run), "--device", "cpu"]) == 2
-        out = json.loads(capsys.readouterr().out)
-        assert out["valid"] == "unknown" and "time budget" in out["error"]
+        assert cli.main(["analyze", str(run), "--device", "cpu"]) == 1
+        assert json.loads(capsys.readouterr().out) == {"valid": "unknown"}
+        lin = _results(run)["indep"]["linear"]
+        assert lin["valid"] == "unknown" and "time budget" in lin["error"]
         (run / "test.json").write_text(json.dumps({"check_budget_s": 0}))
         assert cli.main(["analyze", str(run), "--device", "cpu"]) == 0
         assert json.loads(capsys.readouterr().out)["valid"] is True
+        assert _results(run)["indep"]["linear"]["valid"] is True
     finally:
         set_limits(prev)
 
@@ -287,13 +330,14 @@ def test_cli_module_entry_point(tmp_path):
                         "analyze", str(p), "--device", "cpu"], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 1, r.stderr[-2000:]
+    assert json.loads(r.stdout) == {"valid": False}
     r = subprocess.run([sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
                         "analyze", str(p)], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     if not torch.cuda.is_available():
         # Default device is cuda: without a card the check cannot run,
         # and it does not fall back to the host.
-        assert r.returncode == 2
-        assert "CUDA is not available" in r.stdout
+        assert r.returncode == 1
+        assert json.loads(r.stdout) == {"valid": "unknown"}
+        assert "CUDA is not available" in r.stderr
     assert sum(wk.launches.values()) == 0 or torch.cuda.is_available()
-

@@ -584,10 +584,16 @@ def test_cli_analyze_append_and_txnregister(tmp_path, capsys):
         d = _run_dir(tmp_path, name, h, test)
         assert cli.main(["analyze", str(d), "--device", "cpu", *flags]) == rc
         out = json.loads(capsys.readouterr().out)
-        assert out["valid"] is (rc == 0), (name, out)
-    # A txn history read as the register workload is not checkable: 2.
+        assert out == {"valid": rc == 0}, (name, out)
+        res = json.loads((d / "results.json").read_text())
+        assert res["indep"]["elle"]["valid"] is (rc == 0), (name, res)
+        assert res["indep"]["elle"]["backend"] == "torch-closure-plain"
+    # A txn history read as the register workload is not checkable:
+    # "unknown", exit 1.
     d = _run_dir(tmp_path, "reg", ok, {"workload": "register"})
-    assert cli.main(["analyze", str(d), "--device", "cpu"]) == 2
+    assert cli.main(["analyze", str(d), "--device", "cpu"]) == 1
+    res = json.loads((d / "results.json").read_text())
+    assert res["valid"] == "unknown" and "EncodeError" in res["error"]
     assert cli.main(["analyze", str(d), "--device", "cpu",
                      "--workload", "append"]) == 0
     capsys.readouterr()

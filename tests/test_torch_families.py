@@ -213,14 +213,16 @@ def test_cli_analyze_new_workloads(tmp_path, capsys, workload):
         (run / "history.jsonl").write_text(history_to_jsonl(h))
         (run / "test.json").write_text(json.dumps({"workload": workload}))
         assert cli.main(["analyze", str(run), "--device", "cpu"]) == rc
-        out = json.loads(capsys.readouterr().out)
+        assert json.loads(capsys.readouterr().out) == {"valid": not invalid}
+        out = json.loads((run / "results.json").read_text())["indep"]
         assert out["valid"] is (not invalid)
         if workload == "queue":
             assert out["key_count"] == 3
         elif workload != "set":
-            assert "key_count" not in out and out["op_count"] > 0
+            assert "key_count" not in out
+            assert out["linear"]["op_count"] > 0
             if invalid:
-                assert out["failed_op"]
+                assert out["linear"]["failed_op"]
     jh = jax_ops(_cli_history(workload, True))
     if workload in cli.WHOLE_HISTORY_MODELS:
         assert JLin(cli.WHOLE_HISTORY_MODELS[workload]).check(

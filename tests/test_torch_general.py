@@ -247,11 +247,15 @@ def test_cli_analyze_checks_a_general_history(pin, tmp_path, capsys):
         enc = penc.encode_register_history(h, k_slots=64)
         assert pwgl3.dense_config(PMODEL, pwgl3.tight_k_slots(enc),
                                   enc.max_value) is None
-        path = tmp_path / f"h{code}.jsonl"
-        path.write_text(history_to_jsonl(h))
-        assert cli.main(["analyze", str(path), "--device", "cpu"]) == code
-        out = json.loads(capsys.readouterr().out)
-        assert out["valid"] is (code == 0)
+        run = tmp_path / f"h{code}"
+        run.mkdir()
+        (run / "history.jsonl").write_text(history_to_jsonl(h))
+        assert cli.main(["analyze", str(run), "--device", "cpu"]) == code
+        assert json.loads(capsys.readouterr().out) == {"valid": code == 0}
+        lin = json.loads((run / "results.json").read_text())["indep"][
+            "linear"]
+        assert lin["valid"] is (code == 0)
+        assert lin["backend"] == "torch-cpu"
 
 
 # -- the global tier's plain version and routing ---------------------------

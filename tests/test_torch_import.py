@@ -76,7 +76,10 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.models.queues",
               "jepsen_etcd_demo_tpu_torch.models.multi_register",
               "jepsen_etcd_demo_tpu_torch.models.mutex",
-              "jepsen_etcd_demo_tpu_torch.checkers.set_checker"):
+              "jepsen_etcd_demo_tpu_torch.checkers.set_checker",
+              "jepsen_etcd_demo_tpu_torch.checkers.compose",
+              "jepsen_etcd_demo_tpu_torch.checkers.perf",
+              "jepsen_etcd_demo_tpu_torch.checkers.timeline"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):
@@ -127,3 +130,40 @@ def test_build_hashes_headers_and_reports_every_failed_source(tmp_path,
     assert "a.cu (exit 3)" in msg and "b.cu (exit 3)" in msg
     assert "stand-in compiler" in build.build_log["b"]
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+HARNESS = ("generators", "clients", "db", "control", "nemesis", "runner",
+           "store", "compose")
+
+
+@pytest.mark.parametrize("sub", HARNESS)
+def test_harness_subpackages_import_no_jax(sub):
+    """The run harness is the port's own copy: each subpackage exists and
+    none of its files names jax or the JAX package (the blocked-import
+    run above covers their imports)."""
+    name = f"jepsen_etcd_demo_tpu_torch.{sub}"
+    assert name in PORT_MODULES
+    files = ([PKG / f"{sub}.py"] if (PKG / f"{sub}.py").is_file()
+             else sorted((PKG / sub).glob("*.py")))
+    assert files
+    for f in files:
+        roots = _imported_roots(f)
+        assert not roots & {"jax", "jaxlib", "jepsen_etcd_demo_tpu"}, f
+
+
+def test_cli_test_without_a_card_fails_before_any_op(tmp_path):
+    """`test` resolves the device before the workload starts: with no card
+    and no --device cpu it fails at once, and no run directory holds a
+    recorded history."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this pins the no-card path")
+    store = tmp_path / "store"
+    p = subprocess.run(
+        [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli", "test",
+         "-w", "register", "--fake", "--time-limit", "30", "--store",
+         str(store)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0 and p.stdout == ""
+    assert "CUDA is not available" in p.stderr
+    assert not store.exists() or not list(store.rglob("history.jsonl"))

@@ -540,6 +540,10 @@ def test_not_dense_feasible_long_history_takes_general_path(pin):
     h += [Op(type="invoke", f="read", value=None, process=99),
           Op(type="ok", f="read", value=9, process=99)]
     h += port_ops(_long_history(44)[0])
+    subsumed = Linearizable(device="cpu").check({}, h)
+    # The JAX package's search frontier for frontier: no subsumption.
+    plimits.set_limits(plimits.KernelLimits(long_scan_max=LONG_SCAN,
+                                            subsume_mode=1))
     got = Linearizable(device="cpu").check({}, h)
     want = JLin().check({}, [JOp(**vars(op)) for op in h])
     for f in ("valid", "dead_step", "max_frontier", "kernel", "failed_op",
@@ -547,6 +551,10 @@ def test_not_dense_feasible_long_history_takes_general_path(pin):
         assert got.get(f) == want.get(f), f
     assert got["kernel"] == "wgl2-sort-resumable"
     assert got["valid"] is False and got["dead_step"] == 0
+    # Subsumption keeps the verdict and shrinks the frontier.
+    for f in ("valid", "dead_step", "kernel", "failed_op", "witness"):
+        assert subsumed.get(f) == want.get(f), f
+    assert subsumed["max_frontier"] < want["max_frontier"]
 
 
 def test_cli_analyze_long_invalid_history_prints_witness(pin, tmp_path,
@@ -556,10 +564,12 @@ def test_cli_analyze_long_invalid_history_prints_witness(pin, tmp_path,
     from jepsen_etcd_demo_tpu_torch.ops.op import history_to_jsonl
 
     pin(port={"long_scan_max": LONG_SCAN})
-    path = tmp_path / "long.jsonl"
-    path.write_text(history_to_jsonl(late_mutant[1]))
-    assert cli.main(["analyze", str(path), "--device", "cpu"]) == 1
-    out = json.loads(capsys.readouterr().out)
+    run = tmp_path / "long"
+    run.mkdir()
+    (run / "history.jsonl").write_text(history_to_jsonl(late_mutant[1]))
+    assert cli.main(["analyze", str(run), "--device", "cpu"]) == 1
+    assert json.loads(capsys.readouterr().out) == {"valid": False}
+    out = json.loads((run / "results.json").read_text())["indep"]["linear"]
     want = Linearizable(device="cpu").check({}, late_mutant[1])
     assert _witness_fields(out) == _witness_fields(want)
     assert out["failed_op"] and out["dead_step"] > 300

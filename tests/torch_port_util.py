@@ -103,12 +103,14 @@ def one_device(monkeypatch):
 
 @pytest.fixture
 def pin():
-    """pin(**limits): install the same limits in both packages."""
+    """pin(**limits): install the same limits in both packages, with the
+    port's subsumption off (the JAX package has none, and these tests
+    hold the two searches to each other frontier for frontier)."""
     jprev, pprev = jlimits.limits(), plimits.limits()
 
     def _pin(**kw):
         jlimits.set_limits(jlimits.KernelLimits(**kw))
-        plimits.set_limits(plimits.KernelLimits(**kw))
+        plimits.set_limits(plimits.KernelLimits(subsume_mode=1, **kw))
 
     _pin()
     yield _pin
