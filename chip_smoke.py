@@ -35,11 +35,15 @@ reference's `lein run test -w register`: the tutorial default (30 s at
 10 Hz under partitions) and about 10,000 ops over ~100 keys, each checked
 on the card through the batched dense sweep, stale reads, and every other
 workload healthy and with injected faults, each run directory re-checked
-by `analyze` on the host. It builds the CUDA kernels from csrc/ (one nvcc
-per source, side by side), holds each exactly equal to its plain PyTorch
-version on the card, checks verdicts against the host oracle, the
-whole-scan kernel and the other routes, and shows through the launch
-counters that each main path ran on its kernel.
+by `analyze` on the host. Then the streaming check (`--check-mode
+stream`): the 100k-op history and its mutant fed op by op into a
+session, the JAX package's streaming lane, keys on the shared route and
+the global tier, each against the post-hoc check, and whole tests in
+stream mode and with --fail-fast. It builds the CUDA kernels from csrc/
+(one nvcc per source, side by side), holds each exactly equal to its
+plain PyTorch version on the card, checks verdicts against the host
+oracle, the whole-scan kernel and the other routes, and shows through
+the launch counters that each main path ran on its kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them; then one JSON line describing each kernel (a
@@ -54,6 +58,7 @@ Without a CUDA device it prints no result and exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import json
@@ -72,7 +77,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "families", "encode", "elle", "cli", "test")
+          "families", "encode", "elle", "cli", "test", "stream")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -2245,20 +2250,15 @@ def run_cli(argv: list[str]) -> tuple[int, list[str]]:
     return rc, buf.getvalue().splitlines()
 
 
-def phase_test(dev) -> None:
-    """Whole tests through the port's `test` verb (TEST_RUNS): the fake
-    cluster records each history, the card checks it, the store keeps the
-    run directory. Each run's check is timed by wrapping the test's
-    checker; the dense sweep's launches are counted per run. Every run
-    directory is re-checked by `analyze --device cpu` (the plain versions),
-    which must give the same verdicts and linear fields; run (c) also goes
-    through `python -m jepsen_etcd_demo_tpu_torch.cli test`."""
+@contextlib.contextmanager
+def timed_checks(dev):
+    """compose.fake_test patched so that each test it builds times its
+    checker's check (ending in a device sync): yields the list the
+    seconds are appended to."""
     from jepsen_etcd_demo_tpu_torch import compose
-    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
-    from jepsen_etcd_demo_tpu_torch.store import Store
 
-    check_s: list[float] = []
     fake_test = compose.fake_test
+    seconds: list[float] = []
 
     def timed_fake_test(opts, store=None):
         test = fake_test(opts, store)
@@ -2271,73 +2271,438 @@ def phase_test(dev) -> None:
             finally:
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
-                check_s.append(time.perf_counter() - t0)
+                seconds.append(time.perf_counter() - t0)
 
         test["checker"].check = timed
         return test
 
-    rows = {}
     compose.fake_test = timed_fake_test
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            for name, flags, want_rc in TEST_RUNS:
-                store = Path(tmp) / name
-                argv = ["test", "--fake", *flags, "--store", str(store),
-                        "--device", dev.type]
-                wk.reset_launches()
-                check_s.clear()
-                t0 = time.perf_counter()
-                rc, lines = run_cli(argv)
-                wall_s = time.perf_counter() - t0
-                launches = dict(wk.launches)
-                line = json.loads(lines[-1])
-                run_dir = Store(store).latest().path
-                res = json.loads((run_dir / "results.json").read_text())
-                row = {"workload": flags[1], "flags": flags, "rc": rc,
-                       "valid": line["valid"], "op_count": line["op_count"],
-                       "run_seconds": line["run_seconds"], "wall_s": wall_s,
-                       "check_s": check_s[0],
-                       "key_count": res["indep"].get("key_count"),
-                       "routes": key_routes(res), "launches": launches}
-                emit({"phase": "test_run", "name": name, **row})
-                assert rc == want_rc, (name, row, res)
-                assert line["op_count"] >= TEST_MIN_OPS.get(name, 50), row
-                if name in ("a", "b"):
-                    assert launches["dense_sweep"] >= 1, row
-                if name == "c":
-                    bad = [r for r in res["indep"]["results"].values()
-                           if r["valid"] is False]
-                    assert bad and bad[0]["linear"]["failed_op"], res
-                files = {p.name for p in run_dir.iterdir()}
-                assert {"test.json", "history.jsonl", "results.json",
-                        "jepsen.log"} <= files, files
-                want = verdict_fields(res)
-                t0 = time.perf_counter()
-                arc, alines = run_cli(["analyze", str(run_dir), "--device",
-                                       "cpu"])
-                row["recheck_s"] = time.perf_counter() - t0
-                again = json.loads((run_dir / "results.json").read_text())
-                assert arc == rc and json.loads(alines[-1]) == {
-                    "valid": line["valid"]}, (name, arc, alines)
-                assert verdict_fields(again) == want, (name, again, want)
-                emit({"phase": "test_recheck", "name": name, "device": "cpu",
-                      "seconds": row["recheck_s"]})
-                rows[name] = row
-            sub = subprocess.run(
-                [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
-                 "test", "--fake", *TEST_RUNS[2][1], "--store",
-                 str(Path(tmp) / "c_module"), "--device", dev.type],
-                cwd=ROOT, capture_output=True,
-                text=True, timeout=600)
-            assert sub.returncode == 1, sub.stderr[-3000:]
-            assert json.loads(sub.stdout.splitlines()[-1])["valid"] is False
+        yield seconds
     finally:
         compose.fake_test = fake_test
+
+
+def cli_test(root: Path, name: str, flags: list[str], dev,
+             seconds: list[float]):
+    """One `cli test --fake` run in this process, the launch counters set
+    to 0 just before it: (exit code, its printed line, its results.json,
+    its run directory, the `test_run` row)."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.store import Store
+
+    store = root / name
+    argv = ["test", "--fake", *flags, "--store", str(store), "--device",
+            dev.type]
+    wk.reset_launches()
+    seconds.clear()
+    t0 = time.perf_counter()
+    rc, lines = run_cli(argv)
+    wall_s = time.perf_counter() - t0
+    launches = dict(wk.launches)
+    line = json.loads(lines[-1])
+    run_dir = Store(store).latest().path
+    res = json.loads((run_dir / "results.json").read_text())
+    row = {"workload": flags[1], "flags": flags, "rc": rc,
+           "valid": line["valid"], "op_count": line["op_count"],
+           "run_seconds": line["run_seconds"], "wall_s": wall_s,
+           "check_s": seconds[0],
+           "key_count": res["indep"].get("key_count"),
+           "routes": key_routes(res), "launches": launches}
+    emit({"phase": "test_run", "name": name, **row})
+    files = {p.name for p in run_dir.iterdir()}
+    assert {"test.json", "history.jsonl", "results.json",
+            "jepsen.log"} <= files, files
+    return rc, line, res, run_dir, row
+
+
+def recheck(name: str, run_dir: Path, rc: int, line: dict, want: dict,
+            fields=verdict_fields) -> float:
+    """`analyze --device cpu` of a run directory: the run's exit code and
+    verdict, and `fields` of the rewritten results.json equal to `want`;
+    returns its seconds."""
+    t0 = time.perf_counter()
+    arc, alines = run_cli(["analyze", str(run_dir), "--device", "cpu"])
+    seconds = time.perf_counter() - t0
+    again = json.loads((run_dir / "results.json").read_text())
+    assert arc == rc and json.loads(alines[-1]) == {
+        "valid": line["valid"]}, (name, arc, alines)
+    assert fields(again) == want, (name, again, want)
+    emit({"phase": "test_recheck", "name": name, "device": "cpu",
+          "seconds": seconds})
+    return seconds
+
+
+def phase_test(dev) -> dict:
+    """Whole tests through the port's `test` verb (TEST_RUNS): the fake
+    cluster records each history, the card checks it, the store keeps the
+    run directory. Each run's check is timed by wrapping the test's
+    checker; the dense sweep's launches are counted per run. Every run
+    directory is re-checked by `analyze --device cpu` (the plain versions),
+    which must give the same verdicts and linear fields; run (c) also goes
+    through `python -m jepsen_etcd_demo_tpu_torch.cli test`. Returns the
+    rows by run name."""
+    rows = {}
+    with timed_checks(dev) as seconds, \
+            tempfile.TemporaryDirectory() as tmp:
+        for name, flags, want_rc in TEST_RUNS:
+            rc, line, res, run_dir, row = cli_test(Path(tmp), name, flags,
+                                                   dev, seconds)
+            assert rc == want_rc, (name, row, res)
+            assert line["op_count"] >= TEST_MIN_OPS.get(name, 50), row
+            if name in ("a", "b"):
+                assert row["launches"]["dense_sweep"] >= 1, row
+            if name == "c":
+                bad = [r for r in res["indep"]["results"].values()
+                       if r["valid"] is False]
+                assert bad and bad[0]["linear"]["failed_op"], res
+            row["recheck_s"] = recheck(name, run_dir, rc, line,
+                                       verdict_fields(res))
+            rows[name] = row
+        sub = subprocess.run(
+            [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
+             "test", "--fake", *TEST_RUNS[2][1], "--store",
+             str(Path(tmp) / "c_module"), "--device", dev.type],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        assert sub.returncode == 1, sub.stderr[-3000:]
+        assert json.loads(sub.stdout.splitlines()[-1])["valid"] is False
     emit({"phase": "test", "ok": True,
           "exit_codes": {n: r["rc"] for n, r in rows.items()},
           "check_s": {n: rows[n]["check_s"] for n in ("a", "b")},
           "op_count": {n: rows[n]["op_count"] for n in ("a", "b")},
           "key_count": {n: rows[n]["key_count"] for n in ("a", "b")}})
+    return rows
+
+
+# Phase `stream`: the streaming check. (s1) the 100k-op history and its
+# late mutant fed op by op into an unkeyed session, paced over
+# STREAM_PACE_S in STREAM_BATCHES batches; (s2) the JAX package's
+# streaming lane (bench.py:1314-1420: 16 keys x 400 ops, p_info 0.002,
+# seed 0x57CA, chunks of 64 steps) through a keyed session; (s3) two keys
+# whose tables take the shared-memory route and the global tier; whole
+# tests (g)-(j) through `cli test --check-mode stream`: (g) is run (b)
+# streamed, (h) run (c) with --fail-fast and a 60 s limit, (i) append,
+# (j) txnregister with stale reads and --fail-fast (its rw-register
+# checker does not stream, so it is checked post-hoc).
+STREAM_PACE_S, STREAM_BATCHES = 10.0, 40
+STREAM_LANE = {"keys": 16, "ops_per_key": 400, "p_info": 0.002,
+               "seed": 0x57CA, "flush_ops": 64}
+STREAM_RUNS = (
+    ("g", [*TEST_RUNS[1][1], "--check-mode", "stream"], 0),
+    ("h", [*TEST_RUNS[2][1][:-4], "--time-limit", "60", "--recovery-wait",
+           "1", "--check-mode", "stream", "--fail-fast"], 1),
+    ("i", ["-w", "append", "--rate", "100", "--time-limit", "2",
+           "--recovery-wait", "1", "--check-mode", "stream"], 0),
+    ("j", ["-w", "txnregister", "--rate", "100", "--stale-read-prob", "0.5",
+           "--elle-realtime", "--time-limit", "2", "--recovery-wait", "1",
+           "--check-mode", "stream", "--fail-fast"], 1),
+)
+
+
+def paced_feed(session, ops, batches: int, pace_s: float) -> float:
+    """Feed ops into a session in `batches` batches spread over `pace_s`
+    seconds, as a run's recorder would; returns the feed's seconds."""
+    per = -(-len(ops) // batches)
+    t0 = time.perf_counter()
+    for i in range(batches):
+        for op in ops[i * per:(i + 1) * per]:
+            session.feed(op)
+        time.sleep(max(0.0, t0 + (i + 1) * pace_s / batches
+                       - time.perf_counter()))
+    return time.perf_counter() - t0
+
+
+def wide_keys(res: dict) -> set:
+    """The keys a stream-mode run settled with a table past 2^20 bits."""
+    return {k for k, r in res["indep"].get("results", {}).items()
+            if r["linear"].get("f_cap", 0) > 1 << 20}
+
+
+def stream_fields(res: dict, wide: set) -> dict:
+    """verdict_fields, where each key of `wide` keeps only valid and
+    dead_step: the post-hoc check takes the sort search for such a key,
+    whose frontier differs from the dense table's."""
+    out = verdict_fields(res)
+    for k in wide:
+        out["linear"][k] = {f: out["linear"][k][f]
+                            for f in ("valid", "dead_step")}
+    return out
+
+
+def stream_long(dev) -> dict:
+    """(s1): the 100k-op history and its late mutant through an unkeyed
+    StreamSession; the fields of the valid one equal Linearizable's
+    post-hoc check on the card, the mutant is falsified before finalize
+    with the whole-scan kernel's dead_step."""
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.stream import StreamSession
+
+    model = CASRegister()
+    h, enc, cfg, rs, _encode_s = long_setup(model, LONG_OPS, 10,
+                                            0x10C0 + LONG_OPS)
+    fields = ("valid", "dead_step", "max_frontier", "configs_explored")
+    wk.reset_launches()
+    session = StreamSession(model, keyed=False, device=dev)
+    feed_s = paced_feed(session, h, STREAM_BATCHES, STREAM_PACE_S)
+    t0 = time.perf_counter()
+    got = session.finalize()[None]
+    drain_s = time.perf_counter() - t0
+    launches = dict(wk.launches)
+    stats = session.stats()
+    lin = Linearizable(model, device=dev)
+    t0 = time.perf_counter()
+    post = lin.check({}, h)
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    assert all(got[f] == post[f] for f in fields), (got, post)
+    assert got["valid"] is True and stats["chunks"] >= rs.n_steps // 256
+    assert launches["dense_sweep_resumable"] >= stats["chunks"], launches
+
+    mutant = late_mutant(h, 0.62)
+    bad = StreamSession(model, keyed=False, device=dev)
+    t0 = time.perf_counter()
+    for op in mutant:
+        bad.feed(op)
+    while not bad.falsified() and time.perf_counter() - t0 < 120:
+        time.sleep(0.01)
+    falsified_s = time.perf_counter() - t0
+    assert bad.falsified(), "the mutant was not falsified before finalize"
+    bad_res = bad.finalize()[None]
+    scan, _ms = whole_scan(model, lin.encode(mutant), dev)
+    assert bad_res["valid"] is False and scan["valid"] is False
+    assert bad_res["dead_step"] == scan["dead_step"] > LONG_DEAD_AFTER, \
+        (bad_res, scan)
+    row = {"ops": LONG_OPS, "steps": rs.n_steps, "k_slots": cfg.k_slots,
+           "feed_s": feed_s, "drain_s": drain_s, "posthoc_check_s": post_s,
+           "chunks": stats["chunks"], "restarts": stats["restarts"],
+           "overlap_ratio": stats["overlap_ratio"],
+           "encode_s": stats["encode_s"], "dispatch_s": stats["dispatch_s"],
+           "launches": launches,
+           "max_frontier": got["max_frontier"],
+           "configs_explored": got["configs_explored"],
+           "mutant": {"dead_step": bad_res["dead_step"],
+                      "falsified_s": falsified_s,
+                      "chunks": bad.stats()["chunks"]}}
+    emit({"phase": "stream_s1", "ok": True, **row})
+    return row
+
+
+def stream_lane(dev) -> dict:
+    """(s2): the JAX streaming lane's run through a keyed StreamSession
+    at 64-step chunks: every key's fields equal the post-hoc
+    IndependentChecker's on the card, and one key's final carry equals
+    resumable_reference run on the same chunks on the card."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
+                                                     Linearizable)
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_return_steps
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+    from jepsen_etcd_demo_tpu_torch.stream import StreamSession
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_register_history,
+                                                       interleave_keyed)
+
+    model = CASRegister()
+    lane = STREAM_LANE
+    rng = random.Random(lane["seed"])
+    per_key = [gen_register_history(rng, n_ops=lane["ops_per_key"],
+                                    n_procs=10, p_info=lane["p_info"])
+               for _ in range(lane["keys"])]
+    ops = interleave_keyed(per_key)
+    chunk = lane["flush_ops"]
+    prev = set_limits(replace(limits(), stream_flush_ops=chunk))
+    try:
+        wk.reset_launches()
+        session = StreamSession(model, keyed=True, device=dev)
+        feed_s = paced_feed(session, ops, STREAM_BATCHES, 2.0)
+        t0 = time.perf_counter()
+        got = session.finalize()
+        drain_s = time.perf_counter() - t0
+        launches = dict(wk.launches)
+    finally:
+        set_limits(prev)
+    t0 = time.perf_counter()
+    post = IndependentChecker(Linearizable(model, device=dev)).check({}, ops)
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    fields = ("valid", "dead_step", "max_frontier", "configs_explored")
+    assert set(got) == set(range(lane["keys"])), sorted(got)
+    for k, r in got.items():
+        assert all(r[f] == post["results"][str(k)][f] for f in fields), k
+    assert launches["dense_sweep_resumable"] >= 1, launches
+    # One key's carry against the plain version over the same chunks (the
+    # key's last epoch: full chunks from step 0, then the padded tail).
+    ks = session._streams[0]
+    enc = got[0]["_enc"]
+    rs = encode_return_steps(reslot(enc, ks.cfg.k_slots))
+    T, meta = wk.start_carry(model, ks.cfg, dev)
+    for c0 in range(0, rs.n_steps, chunk):
+        n = min(chunk, rs.n_steps - c0)
+        tabs = torch.zeros((1, chunk, ks.cfg.k_slots, 4), dtype=torch.int32)
+        act = torch.zeros((1, chunk, ks.cfg.k_slots), dtype=torch.bool)
+        tgt = torch.full((1, chunk), -1, dtype=torch.int32)
+        tabs[0, :n] = torch.from_numpy(rs.slot_tabs[c0:c0 + n])
+        act[0, :n] = torch.from_numpy(rs.slot_active[c0:c0 + n])
+        tgt[0, :n] = torch.from_numpy(rs.targets[c0:c0 + n])
+        ln, tg, cm = wk.prepare_colmask(model, ks.cfg, tabs.to(dev),
+                                        act.to(dev), tgt.to(dev))
+        T, meta = wk.resumable_reference(ln, tg, cm, ks.cfg, T, meta)
+    assert torch.equal(T, ks.carry[0]) and torch.equal(meta, ks.carry[1]), \
+        (meta.tolist(), ks.carry[1].tolist())
+    stats = session.stats()
+    row = {"keys": lane["keys"], "ops": len(ops), "chunk": chunk,
+           "feed_s": feed_s, "drain_s": drain_s, "posthoc_check_s": post_s,
+           "chunks": stats["chunks"], "restarts": stats["restarts"],
+           "overlap_ratio": stats["overlap_ratio"], "launches": launches,
+           "carry_key_chunks": ks.chunks, "carry_meta": meta[0].tolist()}
+    emit({"phase": "stream_s2", "ok": True, **row})
+    return row
+
+
+def reslot(enc, k: int):
+    from jepsen_etcd_demo_tpu_torch.ops.encode import reslot_events
+
+    return reslot_events(enc, k) if enc.k_slots != k else enc
+
+
+def stream_tiers(dev) -> dict:
+    """(s3): a keyed session over a key at tight K 14-16 (the resumable
+    sweep's shared-memory route) and one at K 18-22 (past 2^20 bits at
+    S = 8: the global tier); each key's fields equal the post-hoc sweep
+    of its whole history under the same geometry: Linearizable's for the
+    first, the windowed dense-chunked sweep (the general path's dense
+    rung) for the second."""
+    from jepsen_etcd_demo_tpu_torch.checkers import Linearizable
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_return_steps
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits
+    from jepsen_etcd_demo_tpu_torch.stream import StreamSession
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import interleave_keyed
+
+    model = CASRegister()
+    shared, _ = partitioned_history(1000, 0.008, 0x5E0, 14, 16, 4)
+    wide, _ = partitioned_history(1000, 0.016, GENERAL_SEED, 18, 22, 8)
+    ops = interleave_keyed([shared, wide])
+    wk.reset_launches()
+    session = StreamSession(model, keyed=True, device=dev)
+    for op in ops:
+        session.feed(op)
+    got = session.finalize()
+    launches = dict(wk.launches)
+    assert launches["dense_sweep_resumable"] >= 1, launches
+    assert launches["dense_sweep_global"] >= 1, launches
+    cfgs = {k: session._streams[k].cfg for k in (0, 1)}
+    assert not wk.global_tier(cfgs[0]) and wk.global_tier(cfgs[1]), cfgs
+    lin = Linearizable(model, device=dev)
+    fields = ("valid", "dead_step", "max_frontier", "configs_explored")
+    post = lin.check({}, shared)
+    assert all(got[0][f] == post[f] for f in fields), (got[0], post)
+    enc = reslot(lin.encode(wide), cfgs[1].k_slots)
+    chunked = wk.check_steps3_long(encode_return_steps(enc), model, cfgs[1],
+                                   dev)
+    assert all(got[1][f] == chunked[f] for f in fields), (got[1], chunked)
+    row = {"k_slots": [cfgs[k].k_slots for k in (0, 1)],
+           "n_states": [cfgs[k].n_states for k in (0, 1)],
+           "table_bits": [cfgs[k].n_states * cfgs[k].n_masks
+                          for k in (0, 1)],
+           "chunks": session.stats()["chunks"], "launches": launches,
+           "budget_chunked": limits().dense_cell_budget_chunked,
+           "valid": [got[k]["valid"] for k in (0, 1)],
+           "max_frontier": [got[k]["max_frontier"] for k in (0, 1)]}
+    emit({"phase": "stream_s3", "ok": True, **row})
+    return row
+
+
+def stream_run(root: Path, name: str, flags: list[str], want_rc: int, dev,
+               seconds: list[float]):
+    """One run of STREAM_RUNS through cli_test, with its exit code and
+    what stream mode must show for it."""
+    rc, line, res, run_dir, row = cli_test(root, name, flags, dev, seconds)
+    assert rc == want_rc, (name, row, res)
+    stream = res.get("stream", {})
+    row["stream"] = stream
+    emit({"phase": "stream_run", "name": name,
+          "check_mode": res["check_mode"], "stream": stream})
+    if name == "g":
+        assert line["op_count"] >= TEST_MIN_OPS["b"], row
+        assert res["check_mode"] == "stream" and stream["chunks"] >= 1, res
+        assert row["launches"]["dense_sweep_resumable"] >= 1, row
+    if name == "h":
+        assert stream["failfast_aborted"] is True, stream
+        assert line["run_seconds"] < 15, line
+        bad = [r for r in res["indep"]["results"].values()
+               if r["valid"] is False]
+        assert bad and bad[0]["linear"]["failed_op"], res
+    if name == "i":
+        assert res["check_mode"] == "stream", res
+        assert res["indep"]["elle"].get("streamed") is True, res
+    return rc, line, res, run_dir, row
+
+
+def phase_stream(dev, test_rows: dict) -> dict:
+    """The streaming check on the card: whole test (g) through `cli test
+    --check-mode stream`, whose `analyze --device cpu` re-check runs in a
+    subprocess beside s1-s3 and whole tests (h)-(j), each of which is
+    re-checked in this process. Returns the stream launches of the
+    resumable sweep's routes."""
+    rows = {}
+    with timed_checks(dev) as seconds, \
+            tempfile.TemporaryDirectory() as tmp:
+        rc, line, res, run_dir, rows["g"] = stream_run(
+            Path(tmp), *STREAM_RUNS[0], dev, seconds)
+        wide = wide_keys(res)
+        rows["g"]["wide_keys"] = len(wide)
+        want = stream_fields(res, wide)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
+             "analyze", str(run_dir), "--device", "cpu"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+        try:
+            s1 = stream_long(dev)
+            s2 = stream_lane(dev)
+            s3 = stream_tiers(dev)
+            for name, flags, want_rc in STREAM_RUNS[1:]:
+                arc, aline, ares, adir, rows[name] = stream_run(
+                    Path(tmp), name, flags, want_rc, dev, seconds)
+                rows[name]["recheck_s"] = recheck(name, adir, arc, aline,
+                                                  verdict_fields(ares))
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rows["g"]["recheck_s"] = time.perf_counter() - t0
+        again = json.loads((run_dir / "results.json").read_text())
+        assert proc.returncode == rc and json.loads(
+            out.splitlines()[-1]) == {"valid": line["valid"]}, out
+        assert stream_fields(again, wide) == want, (again, want)
+        emit({"phase": "test_recheck", "name": "g", "device": "cpu",
+              "seconds": rows["g"]["recheck_s"], "subprocess": True})
+    g = rows["g"]
+    emit({"phase": "stream", "ok": True,
+          "exit_codes": {n: r["rc"] for n, r in rows.items()},
+          "s1": {f: s1[f] for f in ("chunks", "restarts", "overlap_ratio",
+                                    "drain_s", "posthoc_check_s")},
+          "s2": {f: s2[f] for f in ("chunks", "overlap_ratio", "drain_s",
+                                    "posthoc_check_s")},
+          "g": {"op_count": g["op_count"], "check_s": g["check_s"],
+                "drain_s": g["stream"]["drain_s"],
+                "overlap_ratio": g["stream"]["overlap_ratio"],
+                "wide_keys": g["wide_keys"],
+                "b_check_s": test_rows.get("b", {}).get("check_s"),
+                "b_op_count": test_rows.get("b", {}).get("op_count")},
+          "h_run_seconds": rows["h"]["run_seconds"]})
+    return {"wgl3_sweep[resume]": s1["launches"]["dense_sweep_resumable"],
+            "wgl3_sweep[resume,shared]": s3["launches"]
+            ["dense_sweep_resumable"],
+            "wgl3_sweep[global]": s3["launches"]["dense_sweep_global"]}
 
 
 def main() -> int:
@@ -2366,6 +2731,8 @@ def main() -> int:
     elle_rec: dict = {}
     peak: dict = {}
     global_rec: dict = {}
+    test_rows: dict = {}
+    stream_launches: dict = {}
     runs = {"peak": lambda: phase_peak(dev, kernels, peak),
             "kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
@@ -2382,7 +2749,9 @@ def main() -> int:
             "encode": lambda: phase_encode(dev),
             "elle": lambda: phase_elle(dev, elle_rec),
             "cli": phase_cli,
-            "test": lambda: phase_test(dev)}
+            "test": lambda: test_rows.update(phase_test(dev)),
+            "stream": lambda: stream_launches.update(
+                phase_stream(dev, test_rows))}
     for name in PHASES:
         if name in phases:
             t0 = time.perf_counter()
@@ -2390,6 +2759,9 @@ def main() -> int:
             emit({"phase_seconds": name, "s": time.perf_counter() - t0})
     if "ms" in elle_rec:
         kernels.append(elle_record(elle_rec))
+    for rec, _b in kernels:
+        if rec["name"] in stream_launches:
+            rec["stream_launches"] = stream_launches[rec["name"]]
     print(card, flush=True)
     emit({"kernels": kernels_line(kernels, peak.get("card"))})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,14 @@ the port's carry, so a long sweep started in JAX finishes in the port
 (``ops/wgl3_kernels.run_chain(..., carry=...)``). ``table_to_numpy``
 pads a port carry back to the JAX layout.
 
+``stream_carry_from_numpy`` takes a key's carry in the JAX package's
+streaming check (``stream/engine.KeyStream``: its table u32[S, W], dead
+flag, dead_step, max_frontier, the f32 partial sums of its chunks and the
+real steps it swept) and builds the port's ``(T, meta)``, so a stream
+started in JAX goes on in the port (``wgl3_kernels.stream_chunk``, or
+``run_chain(..., carry=...)`` over the rest of the steps);
+``stream_carry_to_numpy`` is the way back.
+
 ``frontier_from_numpy`` takes a frontier of the JAX package's sort
 search (``ops/wgl2.py``: states i32[F], masks u32[F, W], valid bool[F],
 as in its carry and its death checkpoint) and builds the port's (states
@@ -78,6 +86,45 @@ def table_to_numpy(T: torch.Tensor, meta: torch.Tensor, cfg: DenseConfig
     table = np.zeros((1, _padded_rows(cfg), cfg.n_words), np.uint32)
     table[:, :cfg.n_states] = T.cpu().numpy().view(np.uint32)
     return table, meta.cpu().numpy().astype(np.int32)
+
+
+def stream_carry_from_numpy(table, dead, dead_step, max_frontier, parts,
+                            real_dispatched: int, cfg: DenseConfig
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A JAX KeyStream's carry -> the port's on the CPU: (T int32[1,S,W]
+    holding the table's uint32 bit patterns, meta int32[1,5] = [dead,
+    dead_step, max_frontier, configs_explored, real steps swept]).
+    `parts` is the chunks' summed partials [configs_explored,
+    live_tile_sum, real_steps] (None before the first chunk); its
+    configs_explored is clipped to the i32 range, as the JAX finalize
+    does (exact below 2^24, where f32 sums are). Raises when the table
+    does not match the geometry."""
+    table = np.asarray(table).astype(np.uint32)
+    if table.shape != (cfg.n_states, cfg.n_words):
+        raise ValueError(f"JAX stream table {table.shape} does not match "
+                         f"K={cfg.k_slots}, S={cfg.n_states}")
+    cfgs = 0 if parts is None else int(
+        np.clip(np.asarray(parts, np.float32)[0], 0, 2**31 - 1))
+    meta = np.array([[int(bool(dead)), int(dead_step), int(max_frontier),
+                      cfgs, int(real_dispatched)]], np.int32)
+    T = torch.from_numpy(np.ascontiguousarray(table[None]).view(np.int32))
+    return T.clone(), torch.from_numpy(meta)
+
+
+def stream_carry_to_numpy(T: torch.Tensor, meta: torch.Tensor,
+                          cfg: DenseConfig) -> dict:
+    """The port's stream carry -> the JAX KeyStream's fields as numpy:
+    table u32[S, W], dead, dead_step, max_frontier, parts f32[3] and
+    real_dispatched. The port keeps no live-tile sum, so parts[1] is 0;
+    parts[2], the real steps, is meta's offset."""
+    m = [int(x) for x in meta.reshape(-1)[:5].tolist()]
+    table = T.reshape(cfg.n_states, cfg.n_words).cpu().numpy()
+    return {"table": table.view(np.uint32).copy(),
+            "dead": np.bool_(m[0] != 0), "dead_step": np.int32(m[1]),
+            "max_frontier": np.int32(m[2]),
+            "parts": np.array([m[3] if m[3] >= 0 else 2**31 - 1, 0, m[4]],
+                              np.float32),
+            "real_dispatched": m[4]}
 
 
 def frontier_from_numpy(states, masks, valid

@@ -15,9 +15,11 @@ is past the dense tables. A batched result settles a key
 only when it is valid: an invalid or unknown key is checked again on its
 own, which builds its counterexample witness; a key the tiers left
 "unknown" starts its own ladder past the capacities they proved too
-small (f_cap_floor). Every other composed checker (the timeline) runs per
-key. With ``opts["store_dir"]`` each key's encoded history is written
-there as history-<key>.npz.
+small (f_cap_floor). Keys the run's streaming check already settled
+valid (``opts["stream_results"]``) stay out of the batched launch: their
+Linearizable takes the streamed verdict. Every other composed checker
+(the timeline) runs per key. With ``opts["store_dir"]`` each key's
+encoded history is written there as history-<key>.npz.
 """
 
 from __future__ import annotations
@@ -79,10 +81,14 @@ class IndependentChecker(Checker):
         if not keyed:
             return {"valid": True, "key_count": 0}
         store_dir = (opts or {}).get("store_dir")
+        streamed = (opts or {}).get("stream_results")
         batched: dict[str | None, dict[Any, dict]] = {}
         if len(keyed) > 1:
-            batched = {name: _batched_linearizable(lin, keyed, store_dir)
-                       for name, lin in self._batchable().items()}
+            for name, lin in self._batchable().items():
+                rest = {k: h for k, h in keyed.items()
+                        if lin.streamed_verdict(streamed, k) is None}
+                batched[name] = (_batched_linearizable(lin, rest, store_dir)
+                                 if rest else {})
         results = {k: self._check_key(test, keyed[k], opts, batched, k)
                    for k in sorted(keyed, key=str)}
         valid = merge_valid([r.get("valid") for r in results.values()])

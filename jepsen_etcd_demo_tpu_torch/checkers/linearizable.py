@@ -11,7 +11,9 @@ the dense sweep under the chunked budget, else "unknown"). Results keep
 the JAX checker's schema; an invalid result names the failed op and
 carries the counterexample witness (checkers/witness.py). With
 ``opts["store_dir"]``, the witness and the encoded history
-(``history[-<key>].npz``) are written there.
+(``history[-<key>].npz``) are written there. A valid verdict of the
+run's streaming check (``opts["stream_results"]``, stream/engine.py)
+settles the history without a second sweep.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ def _skipped_witness(dead_step: int, *errors: BaseException) -> dict:
 
 
 class Linearizable(Checker):
+    # First slot-table width of the encoding (doubled until the pending
+    # ops fit).
+    k_slots = 24
+
     def __init__(self, model: Model | str = "cas-register", device=None,
                  time_budget_s: float | None = None, f_cap: int = 256):
         self.model = get_model(model) if isinstance(model, str) else model
@@ -57,7 +63,7 @@ class Linearizable(Checker):
         return self._encode_translated(self.model.prepare_history(history))
 
     def _encode_translated(self, history: Sequence[Op]) -> EncodedHistory:
-        k = 24
+        k = self.k_slots
         while True:
             try:
                 return encode_history(history, self.model, k_slots=k)
@@ -66,8 +72,44 @@ class Linearizable(Checker):
                     raise
                 k *= 2
 
+    def streamed_verdict(self, stream_results: dict | None,
+                         key) -> dict | None:
+        """`key`'s valid streamed verdict under this model among a run's
+        stream_results, or None. An invalid or absent one takes the whole
+        path: an invalid key needs its witness, and the two verdicts are
+        equal, so checking again never flips one."""
+        pre = (stream_results or {}).get(key)
+        if not isinstance(pre, dict) or pre.get("model") != self.model.name:
+            return None
+        return pre if pre.get("valid") is True else None
+
+    def _settle_streamed(self, pre: dict, opts: dict) -> dict:
+        """The result of a history the streaming check already swept, and
+        the encoded history the post-hoc path would have stored."""
+        enc = pre.get("_enc")
+        if opts.get("store_dir") and enc is not None:
+            from ..store.store import write_encoded_tensor
+
+            write_encoded_tensor(opts["store_dir"], opts.get("key"), enc,
+                                 self.model.name)
+        res = {"valid": True, "backend": "torch-dense-streamed",
+               "op_count": int(pre.get("op_count", 0)), "streamed": True}
+        for f in ("dead_step", "max_frontier", "configs_explored"):
+            if f in pre:
+                res[f] = int(pre[f])
+        if "table_cells" in pre:
+            res["overflow"] = False
+            res["f_cap"] = int(pre["table_cells"])
+            res["kernel"] = pre.get("kernel")
+        return res
+
     def check(self, test: dict, history: Sequence[Op],
               opts: dict | None = None) -> dict[str, Any]:
+        opts = opts or {}
+        pre = self.streamed_verdict(opts.get("stream_results"),
+                                    opts.get("key"))
+        if pre is not None:
+            return self._settle_streamed(pre, opts)
         # Fault-plane ops (nemesis start/stop) are not client operations.
         history = [op for op in history if op.process != "nemesis"]
         # Translate once, so the witness replay sees the op language the

@@ -2,7 +2,7 @@
 
     python -m jepsen_etcd_demo_tpu_torch.cli test -w WORKLOAD --fake
         [-q] [-r HZ] [--ops-per-key N] [--time-limit S] [--seed N] ...
-        [--device cuda|cpu]
+        [--check-mode post|stream] [--fail-fast] [--device cuda|cpu]
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
         [-w|--workload WORKLOAD] [--model MODEL] [--device cuda|cpu]
 
@@ -16,7 +16,10 @@ never falls back to the host), and the run directory
 jepsen.log, the per-key timelines and encoded histories
 (history-<key>.npz), and the perf charts where matplotlib imports. It
 prints {"valid", "op_count", "run_seconds"} per run and exits 0 iff every
-run is valid. The real-cluster path (without --fake) is not ported.
+run is valid. With `--check-mode stream` the history is checked while the
+run goes on (stream/), and `--fail-fast` ends a run as soon as that check
+falsifies it; results.json then says `check_mode: "stream"` and carries a
+`stream` record. The real-cluster path (without --fake) is not ported.
 
 `analyze` re-checks a stored run as the JAX package's `analyze` does. The
 workload comes from -w/--workload, else from the run's test.json
@@ -115,6 +118,8 @@ def _test_opts(args) -> dict:
         "reorder_prob": args.reorder_prob,
         "duplicate_delivery_prob": args.duplicate_delivery_prob,
         "device": args.device,
+        "check_mode": args.check_mode,
+        "fail_fast": args.fail_fast,
     }
 
 
@@ -287,6 +292,17 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--duplicate-delivery-prob", type=float, default=0.0,
                    help="[fake] queue dequeues return the head without "
                         "removing it")
+    t.add_argument("--check-mode", default="post",
+                   choices=["post", "stream"],
+                   help="post (default): check the recorded history after "
+                        "the run. stream: check it while the run goes on "
+                        "(stable-prefix chunks swept on the device; the "
+                        "check phase drains and finalizes; the same "
+                        "verdicts). Checkers that cannot stream are "
+                        "checked post-hoc")
+    t.add_argument("--fail-fast", action="store_true",
+                   help="with --check-mode stream: end the run as soon as "
+                        "the streaming check falsifies the history")
     t.add_argument("--check-budget-s", type=nonnegative_float, default=120.0,
                    help="wall-clock bound per linearizability search "
                         "(0 = unbounded); expiry yields 'unknown'")

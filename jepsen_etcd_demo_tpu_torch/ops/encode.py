@@ -25,6 +25,8 @@ is a K-bit mask.
 
 from __future__ import annotations
 
+import heapq
+import itertools
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -252,6 +254,168 @@ def encode_history(history: Sequence[Op], model, k_slots: int = 32
     """History in `model`'s op language -> event array (does NOT apply
     model.prepare_history; the checker translates once)."""
     return encode_events(pair_history(history, model), k_slots=k_slots)
+
+
+class IncrementalEncoder:
+    """The streaming counterpart of pair_history + encode_events.
+
+    Takes history entries one at a time, in recorded order, and emits
+    event rows as soon as they are stable: no later entry can change,
+    remove or reorder them. An op's rows are known only once its
+    completion is recorded (fail: none; indeterminate read: none; info:
+    EV_INVOKE alone, with the completion's value; ok: EV_INVOKE and
+    EV_RETURN), so every event at or after the earliest still-open invoke
+    is unstable: that op's completion may insert an EV_INVOKE there.
+
+    That position is the watermark, ordered by the recorder's per-entry
+    `Op.seq` (never the clock). An op that will crash pins it from its
+    invoke until its info completion is recorded, and is then encoded
+    pending forever. finalize() resolves the ops still open at the end
+    as info, pair_history's end-of-run rule.
+
+    The rows equal the prefix of encode_events(pair_history(history,
+    model)) bit for bit: the same point order, and the same slots, since
+    encode_events hands out fresh slots in increasing order and reuses
+    freed ones most recent first, which depends only on the order of the
+    events (never on the table's capacity); and the same n_ops,
+    max_pending and max_value."""
+
+    def __init__(self, model=None):
+        self.model = model
+        self._open: dict[Any, tuple[int, Op]] = {}   # process -> (idx, op)
+        self._heap: list = []      # (pos, is_return, tiebreak, Invocation)
+        self._tie = itertools.count()
+        self._idx = 0              # history entries consumed
+        self._free: list[int] = []  # freed slot ids (a LIFO stack)
+        self._next_slot = 0
+        self._slot_of: dict[int, int] = {}           # invoke_index -> slot
+        self._cur_pending = 0
+        self._row_max: Optional[int] = None
+        self._last_seq = -1        # last recorder seq consumed
+        self._finalized = False
+        self.rows: list[list[int]] = []              # stable event rows
+        self.n_ops = 0
+        self.max_pending = 0
+
+    @property
+    def max_value(self) -> int:
+        # encode_events' bookkeeping: the largest (a1, a2, rv) of the
+        # emitted rows, 0 when there are none.
+        return 0 if self._row_max is None else self._row_max
+
+    def watermark(self) -> int:
+        """The first unstable history position: the earliest still-open
+        invoke's index (the entries consumed when none is open)."""
+        if self._finalized or not self._open:
+            return self._idx
+        return min(idx for idx, _ in self._open.values())
+
+    def lag(self) -> int:
+        """History entries consumed but not yet stable."""
+        return self._idx - self.watermark()
+
+    def append(self, op: Op) -> list[list[int]]:
+        """Consume one history entry; return the rows it made stable
+        (maybe none). Raises EncodeError on what pair_history rejects,
+        and on a recorder seq that does not increase."""
+        if self._finalized:
+            raise EncodeError("append after finalize")
+        # Recorder-stamped entries arrive in strictly increasing seq: the
+        # order the watermark rests on. Unstamped ops (seq -1) are exempt.
+        if op.seq >= 0:
+            if op.seq <= self._last_seq:
+                raise EncodeError(
+                    f"out-of-order feed: seq {op.seq} after "
+                    f"{self._last_seq} (history index {self._idx})")
+            self._last_seq = op.seq
+        idx = self._idx
+        self._idx += 1
+        if op.type == INVOKE:
+            if op.process in self._open:
+                raise EncodeError(
+                    f"process {op.process} invoked twice without completing "
+                    f"(history indices {self._open[op.process][0]} and {idx})")
+            self._open[op.process] = (idx, op)
+        elif op.type in (OK, FAIL, INFO):
+            if op.process not in self._open:
+                raise EncodeError(
+                    f"completion for process {op.process} at history index "
+                    f"{idx} has no pending invocation")
+            inv_idx, inv = self._open.pop(op.process)
+            self._resolve(inv, op, inv_idx, idx)
+        else:
+            raise EncodeError(f"unknown op type {op.type!r} at index {idx}")
+        return self._drain()
+
+    def finalize(self) -> list[list[int]]:
+        """Resolve every still-open invocation as info and drain; return
+        the remaining rows. Idempotent."""
+        if not self._finalized:
+            for inv_idx, inv in sorted(self._open.values(),
+                                       key=lambda x: x[0]):
+                self._resolve(inv, None, inv_idx, -1)
+            self._open.clear()
+            self._finalized = True
+        return self._drain()
+
+    def encoded_history(self, k_slots: int = 32) -> EncodedHistory:
+        """The stable rows as an EncodedHistory; after finalize, what
+        encoding the whole history would give with the checker's slot
+        table (k_slots doubled until max_pending fits)."""
+        k = max(1, int(k_slots))
+        while self.max_pending > k:
+            k *= 2
+        events = (np.asarray(self.rows, dtype=np.int32)
+                  .reshape(-1, EVENT_WIDTH))
+        return EncodedHistory(events=events, n_events=len(self.rows),
+                              n_ops=self.n_ops, k_slots=k,
+                              max_pending=self.max_pending,
+                              max_value=self.max_value)
+
+    def _resolve(self, inv: Op, comp: Optional[Op], inv_idx: int,
+                 comp_idx: int) -> None:
+        invocation = _make_invocation(inv, comp, inv_idx, comp_idx,
+                                      self.model)
+        # _timeline_points' exclusions, applied when the op resolves.
+        if invocation.status == FAIL:
+            return
+        if invocation.status == INFO and invocation.f == F_READ:
+            return
+        heapq.heappush(self._heap,
+                       (inv_idx, 0, next(self._tie), invocation))
+        if invocation.status == OK:
+            heapq.heappush(self._heap,
+                           (comp_idx, 1, next(self._tie), invocation))
+
+    def _drain(self) -> list[list[int]]:
+        wm = self.watermark()
+        new: list[list[int]] = []
+        while self._heap and self._heap[0][0] < wm:
+            _pos, is_return, _t, inv = heapq.heappop(self._heap)
+            if not is_return:
+                # encode_events' policy: fresh slots in increasing order,
+                # freed ones most recent first.
+                if self._free:
+                    slot = self._free.pop()
+                else:
+                    slot = self._next_slot
+                    self._next_slot += 1
+                self._slot_of[inv.invoke_index] = slot
+                row = [EV_INVOKE, slot, inv.f, inv.a1, inv.a2, inv.rv]
+                self.n_ops += 1
+                self._cur_pending += 1
+                self.max_pending = max(self.max_pending, self._cur_pending)
+            else:
+                slot = self._slot_of.pop(inv.invoke_index)
+                row = [EV_RETURN, slot, inv.f, inv.a1, inv.a2, inv.rv]
+                self._free.append(slot)
+                self._cur_pending -= 1
+            hi = max(row[3], row[4], row[5])
+            self._row_max = hi if self._row_max is None \
+                else max(self._row_max, hi)
+            self.rows.append(row)
+            new.append(row)
+        return new
 
 
 def reslot_events(enc: EncodedHistory, k_slots: int) -> EncodedHistory:

@@ -1,5 +1,5 @@
-"""The kernel limits the dense check, the sort ladder and the elle closure
-read, with their defaults (the JAX package's).
+"""The kernel limits the dense check, the sort ladder, the elle closure
+and the streaming check read, with their defaults (the JAX package's).
 
 A frozen dataclass and nothing more: no environment overrides and no
 tuned profiles. ``set_limits`` swaps the active instance (tests use it to
@@ -87,6 +87,19 @@ class KernelLimits:
     # Largest padded matrix (n_pad^2 cells) a closure puts on the card;
     # past it the graph takes the exact host Tarjan/SCC oracle.
     elle_cell_budget: int = 1 << 28
+
+    # -- the streaming check (stream/) --
+    # Completed txns between two re-checks of the streaming elle
+    # session's growing dependency graph (1..65,536).
+    elle_stream_flush: int = 64
+    # Stable return steps per streamed chunk: one resumable sweep launch
+    # per key each time this many accumulate (8..65,536). Verdicts do not
+    # depend on it (the carry chains exactly).
+    stream_flush_ops: int = 256
+    # Chunks dispatched between two reads of a key's death flag, so the
+    # fail-fast lag is at most stream_max_lag_chunks * stream_flush_ops
+    # return steps (1..64).
+    stream_max_lag_chunks: int = 4
 
 
 _ACTIVE = KernelLimits()

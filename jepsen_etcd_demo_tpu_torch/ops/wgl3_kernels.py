@@ -468,6 +468,29 @@ def run_chain(rs: ReturnSteps, model: Model, cfg: wgl3.DenseConfig,
     return T, meta
 
 
+def stream_chunk(carry, tabs: np.ndarray, act: np.ndarray, tgt: np.ndarray,
+                 model: Model, cfg: wgl3.DenseConfig):
+    """One streamed chunk of a key's return steps (stream/engine.py): the
+    host arrays tabs int32[C,K,4], act bool[C,K], tgt int32[C] (-1 pads
+    form a suffix) go to the carry's device, are prepared there
+    (prepare_colmask) and swept from `carry` (T int32[1,S,W], meta
+    int32[1,5]) by the resumable dense sweep, or by its global tier
+    where the table is past 2^20 bits; returns the next carry.
+
+    On the card the kernel updates the carry in place; on the CPU the
+    plain version returns a new one. Pads leave the carry untouched: the
+    sweep advances meta's step offset by the chunk's real steps only, so
+    a padded chunk keeps every later dead_step where the post-hoc sweep
+    puts it."""
+    T, meta = carry
+    dev = T.device
+    x = (torch.from_numpy(np.ascontiguousarray(a)[None]).to(dev)
+         for a in (tabs, act, tgt))
+    ln, tg, cm = prepare_colmask(model, cfg, *x)
+    sweep = dense_sweep_global if global_tier(cfg) else dense_sweep_resumable
+    return sweep(ln, tg, cm, cfg, T, meta)
+
+
 def long_result(meta_row) -> dict:
     """A chain's final meta -> the long sweep's result dict. The i32
     configs_explored accumulator wraps across windows; a negative final

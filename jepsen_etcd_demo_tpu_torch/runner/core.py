@@ -6,7 +6,9 @@ The structure of jepsen.core/run! (SURVEY.md §3.1):
      the generator, invoke them, and record invoke/completion pairs
   3. DB teardown per node (:57-60), log collection (db/LogFiles, :62-64)
   4. checker.check over the recorded history (:115-119,165-167), on the
-     device the test's checkers were built for
+     device the test's checkers were built for; with check_mode "stream"
+     most of it happens during step 2 (stream/), and with fail_fast a
+     falsified run ends early
   5. everything persisted under <store>/<name>/<timestamp>/
 
 Worker/process model: each worker runs one logical process. A process
@@ -147,10 +149,14 @@ def _maybe_open_barrier(gen: Gen, state: _RunState):
         gen.barrier_done()
 
 
-async def interpret_generators(test: dict, recorder: HistoryRecorder
-                               ) -> list[Op]:
+async def interpret_generators(test: dict, recorder: HistoryRecorder,
+                               stop_check=None) -> list[Op]:
     """Run the generator interpreter loop to exhaustion; return the
-    history."""
+    history.
+
+    `stop_check` (--fail-fast in stream mode) is polled every 50 ms; once
+    it returns true the workers are cancelled and the history recorded so
+    far is returned: the streaming check has already falsified the run."""
     concurrency = int(test.get("concurrency", 10))
     # Publish the resolved value: generators that map a reincarnated
     # process back to its thread read it.
@@ -165,7 +171,51 @@ async def interpret_generators(test: dict, recorder: HistoryRecorder
     if nemesis is not None:
         tasks.append(asyncio.create_task(
             _worker(test, gen, state, -1, concurrency, None, nemesis)))
-    await asyncio.gather(*tasks)
+    if stop_check is None:
+        await asyncio.gather(*tasks)
+        return recorder.history
+    stopped = False
+
+    async def watch():
+        nonlocal stopped
+        while True:
+            await asyncio.sleep(0.05)
+            if stop_check():
+                stopped = True
+                break
+            # A worker that crashed must end the run now, as gather()
+            # would in post mode, not when the generator runs out.
+            if any(t.done() and not t.cancelled()
+                   and t.exception() is not None for t in tasks):
+                break
+        # Cancel until every worker is done: one cancel() can be lost
+        # when it races the wait_for timeout inside _wait.
+        while any(not t.done() for t in tasks):
+            for t in tasks:
+                if not t.done():
+                    t.cancel()
+            await asyncio.sleep(0.05)
+
+    watcher = asyncio.create_task(watch())
+    try:
+        results = await asyncio.gather(*tasks, return_exceptions=True)
+    finally:
+        watcher.cancel()
+        try:
+            await watcher
+        except asyncio.CancelledError:
+            pass
+    for r in results:
+        if isinstance(r, BaseException) \
+                and not isinstance(r, asyncio.CancelledError):
+            if not stopped:
+                raise r
+            # Workers torn down mid-await may raise after the abort; the
+            # verdict is decided already.
+            log.warning("worker error during fail-fast abort: %r", r)
+    if stopped:
+        log.info("=== fail-fast: the streaming check falsified the run; "
+                 "aborting with %d history entries", len(recorder.history))
     return recorder.history
 
 
@@ -254,10 +304,40 @@ async def _run_test_inner(test: dict, store) -> dict:
     t0 = time.monotonic()
     client_proto, nemesis = await _setup_run(test)
     log.info("=== running workload")
-    recorder = HistoryRecorder()
+    # Stream mode: the recorder's listener feeds a session that encodes
+    # and sweeps the stable prefix on its own thread while the workers
+    # run; the check phase then drains and finalizes it. A checker tree
+    # that cannot stream is checked post-hoc.
+    session = None
+    fail_fast = bool(test.get("fail_fast"))
+    if str(test.get("check_mode") or "post").lower() == "stream":
+        from ..stream import session_for_test
+
+        session = session_for_test(test)
+        if session is None:
+            log.info("=== check-mode stream unavailable for this checker; "
+                     "checking post-hoc")
+        elif fail_fast:
+            # Keys the workload has left would otherwise keep their last
+            # partial chunk unswept until the drain.
+            session.enable_eager_flush()
+    recorder = HistoryRecorder(listener=session.feed if session else None)
+
+    def stop_check():
+        if session.falsified():
+            session.aborted = True
+            return True
+        return False
+
     try:
-        history = await interpret_generators(test, recorder)
+        history = await interpret_generators(
+            test, recorder,
+            stop_check=stop_check if session and fail_fast else None)
     finally:
+        if session is not None:
+            # The overlap ends here; the drain goes on on the session's
+            # thread under the teardown.
+            session.finish_input()
         await _teardown_run(test, client_proto, nemesis,
                             store.path if store else None)
     run_s = time.monotonic() - t0
@@ -265,12 +345,23 @@ async def _run_test_inner(test: dict, store) -> dict:
              len(history), run_s)
     checker = test.get("checker")
     opts = {"store_dir": str(store.path)} if store else {}
+    drain_s = 0.0
+    if session is not None:
+        # Valid streamed verdicts settle their keys in the checkers;
+        # invalid ones are checked again for their witness.
+        t1 = time.monotonic()
+        stream_results = session.finalize()
+        drain_s = time.monotonic() - t1
+        if stream_results is not None:
+            opts["stream_results"] = stream_results
     result = (checker.check(test, history, opts)
               if checker is not None else {"valid": True})
     result.setdefault("op_count",
                       sum(1 for o in history if o.type == INVOKE))
     result["run_seconds"] = run_s
-    result["check_mode"] = "post"
+    result["check_mode"] = "stream" if session is not None else "post"
+    if session is not None:
+        result["stream"] = {**session.stats(), "drain_s": drain_s}
     if store is not None:
         store.write_run(test, history, result)
         log.info("=== stored run at %s", store.path)

@@ -545,3 +545,27 @@ def test_gset_column_masks_equal_plain(card, K):
         assert len(got_chain) == len(want_chain) >= 3
         for (Tk, mk), (Tp, mp) in zip(got_chain, want_chain):
             assert torch.equal(Tk, Tp) and torch.equal(mk, mp), b
+
+
+def test_streamed_key_equals_plain_stream_on_card(card):
+    """A KeyStream on the card (every chunk one launch of the resumable
+    sweep, with padded partial flushes) against the same stream's plain
+    version on the CPU: every field equal, and the stream launched the
+    kernel."""
+    from jepsen_etcd_demo_tpu_torch.stream import KeyStream
+
+    h = mutate_history(random.Random(9), gen_register_history(
+        random.Random(9), n_ops=600, n_procs=8, p_info=0.01))
+    wk.reset_launches()
+    got = KeyStream(CASRegister(), None, device=card)
+    want = KeyStream(CASRegister(), None, device="cpu")
+    for i, op in enumerate(h):
+        for ks in (got, want):
+            ks.feed(op, live=True)
+            if i % 97 == 0:
+                ks.flush_partial(live=True)
+    g, w = got.finalize(), want.finalize()
+    assert wk.launches["dense_sweep_resumable"] >= 1
+    for f in ("valid", "survived", "dead_step", "max_frontier",
+              "configs_explored"):
+        assert g[f] == w[f], f

@@ -79,7 +79,9 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.checkers.set_checker",
               "jepsen_etcd_demo_tpu_torch.checkers.compose",
               "jepsen_etcd_demo_tpu_torch.checkers.perf",
-              "jepsen_etcd_demo_tpu_torch.checkers.timeline"):
+              "jepsen_etcd_demo_tpu_torch.checkers.timeline",
+              "jepsen_etcd_demo_tpu_torch.stream.engine",
+              "jepsen_etcd_demo_tpu_torch.stream.elle"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):

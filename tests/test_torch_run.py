@@ -108,6 +108,8 @@ RUNS = {
     "multiregister": ({"workload": "multiregister", "nemesis": "noop"}, True),
     "append": ({"workload": "append"}, True),
     "txnregister": ({"workload": "txnregister", "nemesis": "clock"}, True),
+    "register-stream": ({"workload": "register", "no_nemesis": True,
+                         "check_mode": "stream"}, True),
 }
 
 
@@ -151,7 +153,7 @@ def test_workload_runs_on_cpu(runs, name):
 
 
 @pytest.mark.parametrize("name", ["register-partitions", "register-stale",
-                                  "queue", "gset"])
+                                  "queue", "gset", "register-stream"])
 def test_jax_analyze_reads_port_runs(runs, name, dedup1):
     """The JAX package's analyze on the port's run directory: the run's
     verdict and, per key, the linear fields of the port's analyze under
