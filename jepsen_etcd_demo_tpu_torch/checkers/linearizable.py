@@ -63,14 +63,25 @@ class Linearizable(Checker):
         return self._encode_translated(self.model.prepare_history(history))
 
     def _encode_translated(self, history: Sequence[Op]) -> EncodedHistory:
+        # The encode cache (store/encode_cache.py), off unless a CLI verb
+        # activated it: its key covers exactly the encoder's input, so a
+        # hit is bit-identical to encoding again.
+        from ..store import encode_cache
+
+        cached = encode_cache.lookup(history, self.model.name, self.k_slots)
+        if cached is not None:
+            return cached
         k = self.k_slots
         while True:
             try:
-                return encode_history(history, self.model, k_slots=k)
+                enc = encode_history(history, self.model, k_slots=k)
+                break
             except SlotOverflow:
                 if k >= 4096:
                     raise
                 k *= 2
+        encode_cache.store(history, self.model.name, self.k_slots, enc)
+        return enc
 
     def streamed_verdict(self, stream_results: dict | None,
                          key) -> dict | None:

@@ -4,7 +4,8 @@
         [-q] [-r HZ] [--ops-per-key N] [--time-limit S] [--seed N] ...
         [--check-mode post|stream] [--fail-fast] [--device cuda|cpu]
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
-        [-w|--workload WORKLOAD] [--model MODEL] [--device cuda|cpu]
+        [-w|--workload WORKLOAD] [--model MODEL] [--no-encode-cache]
+        [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
 
 `test` runs a whole Jepsen test against the in-process fake cluster, as
 the JAX package's `test --fake` does (the reference's `lein run test -w
@@ -36,18 +37,23 @@ workload's:
 Each is composed as {"perf", "indep": ...}, with a per-key timeline.
 Linearizability is searched under the run's budget (test.json
 "check_budget_s", 120 s when absent, 0 or null for none). On a run
-directory it writes results.json and the checkers' artifacts there; on a
-bare history.jsonl it writes nothing. It prints {"valid": ...} and exits 0
-iff valid is true, else 1 (invalid, unknown, or not checkable).
+directory it writes results.json and the checkers' artifacts there, and
+keeps the encoded histories in <run>/.encode-cache/ unless
+--no-encode-cache; on a bare history.jsonl it writes nothing. It prints
+{"valid": ...} and exits 0 iff valid is true, else 1 (invalid, unknown,
+or not checkable). --sweep-mode sets the long sweeps' mode
+(limits().sparse_mode) for the command.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import logging
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 from .compose import FAKE_NEMESES, WORKLOADS, check_budget
@@ -218,17 +224,23 @@ def _checker(args, test: dict, history):
 
 def cmd_analyze(args) -> int:
     from .checkers import Compose, PerfChecker
+    from .store import encode_cache
     from .store.store import RunDir
 
     path = Path(args.path)
     run = RunDir(path) if path.is_dir() else None
+    # The encode cache of a run directory: analyzing the run again skips
+    # the host encode. A bare history file gets nothing written.
+    cache_root = (path / encode_cache.CACHE_DIRNAME
+                  if run is not None and not args.no_encode_cache else None)
     try:
         history = _read_history(path)
         checker = Compose({"perf": PerfChecker(),
                            "indep": _checker(args, _read_test(path),
                                              history)})
-        result = checker.check({}, history,
-                               {"store_dir": str(path)} if run else {})
+        with encode_cache.activated(cache_root):
+            result = checker.check({}, history,
+                                   {"store_dir": str(path)} if run else {})
     except (OSError, ValueError, RuntimeError) as e:
         result = {"valid": "unknown", "error": f"{type(e).__name__}: {e}"}
         print(f"error: {result['error']}", file=sys.stderr)
@@ -239,6 +251,35 @@ def cmd_analyze(args) -> int:
 
 
 # -- parser --------------------------------------------------------------
+
+# --sweep-mode -> limits().sparse_mode (ops/limits.py).
+SWEEP_MODES = {"auto": 0, "dense": 1, "sparse": 2}
+
+
+@contextlib.contextmanager
+def sweep_mode(mode: str | None):
+    """limits().sparse_mode as --sweep-mode says, for one command (None
+    leaves the limits as they are)."""
+    if mode is None:
+        yield
+        return
+    from .ops.limits import limits, set_limits
+
+    prev = set_limits(replace(limits(), sparse_mode=SWEEP_MODES[mode]))
+    try:
+        yield
+    finally:
+        set_limits(prev)
+
+
+def _add_sweep_mode_flag(p) -> None:
+    p.add_argument("--sweep-mode", default=None, choices=sorted(SWEEP_MODES),
+                   help="long sweeps: auto (the sparse kernel where the "
+                        "density policy picks it; default), dense (sparse "
+                        "kernel off) or sparse (every closure round over "
+                        "the live blocks only). Verdicts are the same in "
+                        "every mode")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -320,6 +361,11 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--model", default=None, choices=sorted(REGISTRY),
                    help="model to check against (default: the workload's, "
                         "cas-register for register, fifo-queue for queue)")
+    a.add_argument("--no-encode-cache", action="store_true",
+                   help="do not keep encoded histories under "
+                        "<run>/.encode-cache/ (encode from history.jsonl "
+                        "every time)")
+    _add_sweep_mode_flag(a)
     a.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
@@ -331,7 +377,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "test":
         return cmd_test(args)
-    return cmd_analyze(args)
+    with sweep_mode(args.sweep_mode):
+        return cmd_analyze(args)
 
 
 if __name__ == "__main__":
