@@ -65,10 +65,12 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -77,13 +79,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "families", "encode", "elle", "cli", "test", "stream")
+          "families", "encode", "elle", "cli", "test", "replay", "stream")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
 # record name -> (source, TPU kernel it replaces)
 KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
            "wgl3_sweep[corpus]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:1132"),
+           "wgl3_sweep[replay]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:1132"),
            "wgl3_sweep[single]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:169"),
            "wgl3_sweep[resume]": (f"{CSRC}/wgl3_sweep.cu", f"{PALLAS}:366"),
            "wgl3_sweep[resume,shared]": (f"{CSRC}/wgl3_sweep.cu",
@@ -725,7 +728,11 @@ def invalid_mutant(h, seed: int):
     raise AssertionError("no invalid mutant found")
 
 
+@functools.lru_cache(maxsize=1)
 def make_corpus():
+    """The BASELINE.json configs[4] corpus (1,024 histories of 150 ops at
+    concurrency 10), made once a run: (histories, encodings, the mutants'
+    encodings, the mutants)."""
     from jepsen_etcd_demo_tpu_torch.ops.encode import encode_register_history
     from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_register_history,
                                                        mutate_history)
@@ -737,7 +744,7 @@ def make_corpus():
     mutants = [mutate_history(mrng, h) for h in hists]
     enc = [encode_register_history(h, k_slots=32) for h in hists]
     menc = [encode_register_history(h, k_slots=32) for h in mutants]
-    return hists, enc, menc
+    return hists, enc, menc, mutants
 
 
 def phase_corpus(dev, kernels) -> None:
@@ -747,7 +754,7 @@ def phase_corpus(dev, kernels) -> None:
 
     model = CASRegister()
     t0 = time.perf_counter()
-    _hists, enc, menc = make_corpus()
+    _hists, enc, menc, _mutants = make_corpus()
     encode_s = time.perf_counter() - t0
     wk.check_batch_encoded_auto(enc[:16], model, dev)   # warm-up
     torch.cuda.synchronize()
@@ -2008,7 +2015,7 @@ def phase_encode(dev) -> None:
                 "host_s": host_s, "device_s": dev_s}
 
     model = CASRegister()
-    _hists, corpus, _menc = make_corpus()
+    _hists, corpus, _menc, _mutants = make_corpus()
     rows = {"corpus": both(corpus)}
     _h, enc, _cfg, _rs, _s = long_setup(model, LONG_OPS, 10,
                                         0x10C0 + LONG_OPS)
@@ -2333,21 +2340,21 @@ def recheck(name: str, run_dir: Path, rc: int, line: dict, want: dict,
     return seconds
 
 
-def phase_test(dev) -> dict:
+def phase_test(dev, root: Path) -> dict:
     """Whole tests through the port's `test` verb (TEST_RUNS): the fake
-    cluster records each history, the card checks it, the store keeps the
-    run directory. Each run's check is timed by wrapping the test's
-    checker; the dense sweep's launches are counted per run. Every run
-    directory is re-checked by `analyze --device cpu` (the plain versions),
-    which must give the same verdicts and linear fields; run (c) also goes
-    through `python -m jepsen_etcd_demo_tpu_torch.cli test`. Returns the
-    rows by run name."""
+    cluster records each history, the card checks it, the store under
+    `root`/<run name> keeps the run directory (phase `replay` replays the
+    stores of runs (a) and (b)). Each run's check is timed by wrapping the
+    test's checker; the dense sweep's launches are counted per run. Every
+    run directory is re-checked by `analyze --device cpu` (the plain
+    versions), which must give the same verdicts and linear fields; run
+    (c) also goes through `python -m jepsen_etcd_demo_tpu_torch.cli test`.
+    Returns the rows by run name, each with its store."""
     rows = {}
-    with timed_checks(dev) as seconds, \
-            tempfile.TemporaryDirectory() as tmp:
+    with timed_checks(dev) as seconds:
         for name, flags, want_rc in TEST_RUNS:
-            rc, line, res, run_dir, row = cli_test(Path(tmp), name, flags,
-                                                   dev, seconds)
+            rc, line, res, run_dir, row = cli_test(root, name, flags, dev,
+                                                   seconds)
             assert rc == want_rc, (name, row, res)
             assert line["op_count"] >= TEST_MIN_OPS.get(name, 50), row
             if name in ("a", "b"):
@@ -2358,11 +2365,12 @@ def phase_test(dev) -> dict:
                 assert bad and bad[0]["linear"]["failed_op"], res
             row["recheck_s"] = recheck(name, run_dir, rc, line,
                                        verdict_fields(res))
+            row["store"] = str(root / name)
             rows[name] = row
         sub = subprocess.run(
             [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
              "test", "--fake", *TEST_RUNS[2][1], "--store",
-             str(Path(tmp) / "c_module"), "--device", dev.type],
+             str(root / "c_module"), "--device", dev.type],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
         assert sub.returncode == 1, sub.stderr[-3000:]
         assert json.loads(sub.stdout.splitlines()[-1])["valid"] is False
@@ -2372,6 +2380,326 @@ def phase_test(dev) -> dict:
           "op_count": {n: rows[n]["op_count"] for n in ("a", "b")},
           "key_count": {n: rows[n]["key_count"] for n in ("a", "b")}})
     return rows
+
+
+# Phase `replay`: corpus replay of a results store through `cli corpus`,
+# every dense launch through the length-bucketed scheduler (sched/).
+# (r1) the BASELINE.json configs[4] store ("Corpus replay: 1024 stored
+# histories from store/"): make_corpus()'s histories as register runs of
+# REPLAY_KEYS keys, written through the port's Store and
+# write_encoded_tensor, with REPLAY_LONG_RUNS runs of keys at
+# REPLAY_LONG_OPS ops (more step buckets; p_info 0 keeps their pending
+# sets, and so their tables, as narrow as the corpus's) and one run of
+# the first REPLAY_KEYS mutants; (r2) the corpus's runs (the long runs,
+# stored without a JSONL history, moved out: their ~384,000 entries
+# would double the phase's host time) encoded from the JSONL with a cold
+# encode cache
+# (`--reencode`, which never reads the cache), then, their tensors
+# moved away, from the warm cache; (r3) phase `test`'s stores of runs
+# (a) and (b).
+REPLAY_KEYS = 16
+REPLAY_LONG_RUNS, REPLAY_LONG_OPS, REPLAY_LONG_SEED = 4, (1_000, 5_000), 0x5EED
+# The bucket launch held against the plain version: HOLD_REAL histories
+# and HOLD_PADS all-pad lanes (b = 13, not a multiple of 4).
+HOLD_REAL, HOLD_PADS = 10, 3
+
+
+def write_replay_run(run, name: str, hists, encs) -> str:
+    """One register run of len(hists) keys into the port's RunDir `run`:
+    test.json, history.jsonl (the keys interleaved as (key, value) ops;
+    not for the long runs, which (r2) leaves out and (r1) reads from
+    their tensors), results.json with its key count, and each key's
+    encoded tensor. Returns the run directory."""
+    from jepsen_etcd_demo_tpu_torch.store import write_encoded_tensor
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import interleave_keyed
+
+    run.write_test({"name": name, "workload": "register"})
+    if "long" not in name:
+        run.write_history(interleave_keyed(hists))
+    run.write_results({"indep": {"key_count": len(hists)}})
+    for k, e in enumerate(encs):
+        write_encoded_tensor(run.path, k, e, "cas-register")
+    return str(run.path)
+
+
+def replay_store(store: Path) -> dict:
+    """The (r1) store; returns {run name: run directory}."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import encode_register_history
+    from jepsen_etcd_demo_tpu_torch.store import Store
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import gen_register_history
+
+    hists, enc, menc, mutants = make_corpus()
+    rng = random.Random(REPLAY_LONG_SEED)
+    longs = [gen_register_history(rng, n_ops=rng.randint(*REPLAY_LONG_OPS),
+                                  n_procs=10, p_info=0.0)
+             for _ in range(REPLAY_LONG_RUNS * REPLAY_KEYS)]
+    lenc = [encode_register_history(h, k_slots=32) for h in longs]
+    K = REPLAY_KEYS
+    groups = [
+        *((f"replay-{i // K:02d}", hists[i:i + K], enc[i:i + K])
+          for i in range(0, len(hists), K)),
+        *((f"replay-long-{i // K}", longs[i:i + K], lenc[i:i + K])
+          for i in range(0, len(longs), K)),
+        ("replay-mutants", mutants[:K], menc[:K])]
+    # The run directories (and the store's symlinks) one by one, their
+    # files from threads: the tensors' zlib compression releases the
+    # interpreter lock.
+    run_dirs = [Store(store).new_run(g[0]) for g in groups]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        paths = list(pool.map(lambda rg: write_replay_run(rg[0], *rg[1]),
+                              zip(run_dirs, groups)))
+    return {g[0]: p for g, p in zip(groups, paths)}
+
+
+def corpus_cli(store, dev, *flags):
+    """`cli corpus --device <dev>` in this process: (exit code, its JSON,
+    seconds)."""
+    t0 = time.perf_counter()
+    rc, lines = run_cli(["corpus", str(store), "--device", dev.type, *flags])
+    return rc, json.loads(lines[-1]), time.perf_counter() - t0
+
+
+def corpus_entries(store, dev) -> list:
+    """[(run, key, EncodedHistory)] of the store's register runs, in the
+    order `cli corpus` checks them."""
+    from jepsen_etcd_demo_tpu_torch import cli
+
+    by_model, _runs, _tensors = cli.corpus_entries(argparse.Namespace(
+        store_root=str(store), model="cas-register", reencode=False), dev)
+    return by_model["cas-register"]
+
+
+def hold_bucket_launch(dev, model) -> dict:
+    """One bucket launch as the scheduler makes it, with b = HOLD_REAL +
+    HOLD_PADS lanes (not a multiple of 4) at a step count a bucket above
+    every real length: exactly equal to the plain version; each pad lane
+    survives with no work and each real lane equals the pre-scheduler
+    route's fields. Not counted: the main path's counts are set to 0
+    after it."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+
+    _h, enc, menc, _m = make_corpus()
+    pick = [e for pair in zip(enc, menc) for e in pair][:HOLD_REAL]
+    k = max(wgl3.tight_k_slots(e) for e in pick)
+    cfg = wgl3.dense_config(model, k, max(e.max_value for e in pick))
+    steps = [encode_return_steps(reslot_events(e, k) if e.k_slots != k
+                                 else e, dev) for e in pick]
+    r = wgl3.step_bucket(2 * max(s.n_steps for s in steps) + 1)
+    b = HOLD_REAL + HOLD_PADS
+    padded = steps + [engine._pad_rs(k)] * HOLD_PADS
+    ln, tg, cm = wk.prepare_colmask(model, cfg,
+                                    *wgl3.stack_steps3(padded, r, dev))
+    row0 = wgl3.init_row(model, cfg)
+    got = engine.BucketLauncher(b, r)(model, cfg, padded, dev)
+    want = wk.sweep_reference(ln, tg, cm, cfg, row0)
+    assert torch.equal(got, wk.dense_sweep(ln, tg, cm, cfg, row0))
+    err = int((got.long() - want.long()).abs().max().item())
+    assert err == 0, f"bucket launch and plain version differ by {err}"
+    assert got[HOLD_REAL:].tolist() == [[1, 0, -1, 1, 0]] * HOLD_PADS
+    auto, _kname = wk.check_batch_encoded_auto(pick, model, dev)
+    rows = wgl3.unpack_np(got.cpu().numpy())
+    for i, a in enumerate(auto):
+        assert (bool(rows["survived"][i]), int(rows["dead_step"][i]),
+                int(rows["max_frontier"][i]),
+                int(rows["configs_explored"][i])) == (
+            a["survived"], a["dead_step"], a["max_frontier"],
+            a["configs_explored"]), i
+    return {"b": b, "r": r, "k_slots": k, "n_states": cfg.n_states,
+            "invalid": int((~rows["survived"][:HOLD_REAL]).sum()),
+            "max_abs_err": err}
+
+
+def corpus_steps(entries, model, dev):
+    """The scheduler's view of the store's dense histories: (shared
+    geometry, each history's return steps under it)."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+
+    encs = [e for _r, _k, e in entries]
+    k = max(wgl3.tight_k_slots(e) for e in encs)
+    cfg = wgl3.dense_config(model, k, max(e.max_value for e in encs))
+    return cfg, [encode_return_steps(reslot_events(e, k) if e.k_slots != k
+                                     else e, dev) for e in encs]
+
+
+def bucket_record(cfg, steps, model, dev, launches: int):
+    """The kernels-line record of the replay's largest bucket launch, at
+    the main path's shape (all-pad lanes included): its inputs as the
+    scheduler stacks them, the kernel exact against its plain version,
+    timed, with its bound."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+
+    k = cfg.k_slots
+    buckets: dict = {}
+    for s, r in zip(steps, engine.assign_step_buckets(
+            [s.n_steps for s in steps])):
+        buckets.setdefault(r, []).append(s)
+    r, part = max(buckets.items(), key=lambda kv: len(kv[1]))
+    chunk = max(1, limits().stack_element_budget // (r * (k * 5 + 1)))
+    part = part[:chunk]
+    b = engine._batch_bucket(len(part), chunk)
+    padded = part + [engine._pad_rs(k)] * (b - len(part))
+    inputs = wk.prepare_colmask(model, cfg,
+                                *wgl3.stack_steps3(padded, r, dev))
+    rec, bnd = kernel_record("wgl3_sweep[replay]", cfg, inputs,
+                             wgl3.init_row(model, cfg), launches, reps=20)
+    rec["shape"] = {"b": b, "real": len(part), "r": r, "k_slots": k,
+                    "n_states": cfg.n_states}
+    return rec, bnd
+
+
+def replay_tests(dev, test_rows: dict) -> dict:
+    """(r3): `cli corpus` over phase `test`'s stores of runs (a) and (b):
+    every key's verdict equals the run's results.json, the keys of the
+    sort tiers included; {} when phase `test` did not run."""
+    out = {}
+    for name in ("a", "b"):
+        store = test_rows.get(name, {}).get("store")
+        if store is None:
+            continue
+        run = next(Path(store).glob("*/*/results.json")).parent
+        res = json.loads((run / "results.json").read_text())["indep"]
+        bad = {k for k, r in res["results"].items()
+               if r["linear"]["valid"] is not True}
+        rc, got, seconds = corpus_cli(store, dev)
+        assert rc == (1 if bad else 0), (name, got)
+        assert got["keys"] == got["from_tensors"] == res["key_count"], got
+        assert {e["key"] for e in got["invalid"]} == bad, (name, got)
+        routes = key_routes({"indep": res})
+        out[name] = {"keys": got["keys"], "invalid": len(bad),
+                     "routes": routes, "launches": got["launches"],
+                     "kernel": got["kernel"], "wall_s": got["wall_s"],
+                     "cli_s": seconds}
+    return out
+
+
+def phase_replay(dev, kernels, test_rows: dict) -> None:
+    """Corpus replay (r1)-(r3) through `cli corpus` on the card; see the
+    comment above REPLAY_KEYS."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch import sched
+    from jepsen_etcd_demo_tpu_torch.checkers.oracle import check_events_oracle
+    from jepsen_etcd_demo_tpu_torch.models import CASRegister
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+    from jepsen_etcd_demo_tpu_torch.store import encode_cache
+
+    model = CASRegister()
+    hold = hold_bucket_launch(dev, model)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "store"
+        t0 = time.perf_counter()
+        runs = replay_store(store)
+        setup_s = time.perf_counter() - t0
+
+        # (r1): the main path, its launch counts from 0.
+        wk.reset_launches()
+        rc, out, cli_s = corpus_cli(store, dev)
+        launches = dict(wk.launches)
+        n_keys = len(runs) * REPLAY_KEYS
+        assert rc == 1 and out["valid"] is False, out
+        assert out["keys"] == out["from_tensors"] == n_keys, out
+        assert out["runs"] == len(runs) and out["kernel"] == \
+            engine.kernel_label(dev), out
+        assert launches["dense_sweep"] == out["launches"] > 0, launches
+        _h, _e, menc, _m = make_corpus()
+        rejected = {str(i) for i, e in enumerate(menc[:REPLAY_KEYS])
+                    if not check_events_oracle(e, model).valid}
+        assert rejected and {e["run"] for e in out["invalid"]} == {
+            runs["replay-mutants"]}, out["invalid"]
+        assert {e["key"] for e in out["invalid"]} == rejected, out
+
+        # Every key's fields against the pre-scheduler route on the same
+        # encodings, the short and the long runs apart (a slot past a
+        # history's pending ops never fires, so the fields do not depend
+        # on the shared width).
+        entries = corpus_entries(store, dev)
+        encs = [e for _r, _k, e in entries]
+        depth_s = {}
+        for depth in (4, 1):
+            # In-flight depths 4 (the default) and 1 (each launch read
+            # back before the next): the same results; the seconds say
+            # what the launch-ahead window hides.
+            prev = set_limits(replace(limits(), pod_pipeline_depth=depth))
+            try:
+                t1 = time.perf_counter()
+                res_d, kname, stats = sched.check_corpus(encs, model,
+                                                         device=dev)
+                depth_s[depth] = time.perf_counter() - t1
+            finally:
+                set_limits(prev)
+            if depth == 4:
+                res = res_d
+            assert res_d == res, "results differ between depths"
+        assert stats["launches"] == out["launches"] and \
+            stats["padding_waste"] == out["padding_waste"], (stats, out)
+        long_runs = {p for n, p in runs.items() if "long" in n}
+        for want_long in (False, True):
+            idx = [i for i, (r, _k, _e) in enumerate(entries)
+                   if (r in long_runs) == want_long]
+            auto, _kn = wk.check_batch_encoded_auto(
+                [entries[i][2] for i in idx], model, dev)
+            for i, a in zip(idx, auto):
+                for f in ("valid", "dead_step", "max_frontier",
+                          "configs_explored", "op_count"):
+                    assert res[i][f] == a[f], (entries[i][:2], f)
+        cfg, steps = corpus_steps(entries, model, dev)
+        kernels.append(bucket_record(cfg, steps, model, dev,
+                                     launches["dense_sweep"]))
+        # What one launch padded to the longest history (the route before
+        # the scheduler) would have swept.
+        single = len(steps) * wgl3.step_bucket(max(s.n_steps
+                                                   for s in steps))
+
+        # (r2): the corpus's runs (the long runs moved out of the store)
+        # encoded from the JSONL, cold cache then warm.
+        for name, path in runs.items():
+            if "long" in name:
+                shutil.move(str(Path(path).parent), tmp)
+        n_r2 = n_keys - REPLAY_LONG_RUNS * REPLAY_KEYS
+        encode_cache.reset_stats()
+        rc2, cold, cold_s = corpus_cli(store, dev, "--reencode")
+        cold_cache = encode_cache.stats()
+        for npz in store.glob("*/*/history*.npz"):
+            npz.unlink()
+        encode_cache.reset_stats()
+        rc3, warm, warm_s = corpus_cli(store, dev)
+        warm_cache = encode_cache.stats()
+        for o in (cold, warm):
+            assert o["from_tensors"] == 0 and o["keys"] == n_r2, o
+            assert o["invalid"] == out["invalid"], o
+        assert rc2 == rc3 == rc and cold_cache["hits"] == 0
+        assert warm_cache == {"hits": n_r2, "misses": 0,
+                              "evictions": 0}, warm_cache
+        phase_s = time.perf_counter() - t0
+    r3 = replay_tests(dev, test_rows)
+    emit({"phase": "replay", "ok": True, "runs": out["runs"],
+          "histories": n_keys, "invalid": len(out["invalid"]),
+          "kernel": out["kernel"], "wall_s": out["wall_s"],
+          "histories_per_s": n_keys / out["wall_s"], "cli_s": cli_s,
+          "launches": out["launches"], "buckets": stats["buckets"],
+          "padding_waste": out["padding_waste"],
+          "steps_real": stats["steps_real"],
+          "steps_padded": stats["steps_padded"],
+          "single_launch_steps_padded": single,
+          "cache_hit_rate": out["cache_hit_rate"], "setup_s": setup_s,
+          "check_corpus_s": {"depth4": depth_s[4], "depth1": depth_s[1]},
+          "hold": hold,
+          "reencode": {
+              "keys": n_r2,
+              "cold": {"encode_s": cold_s - cold["wall_s"],
+                       "wall_s": cold["wall_s"], "cache": cold_cache},
+              "warm": {"encode_s": warm_s - warm["wall_s"],
+                       "wall_s": warm["wall_s"], "cache": warm_cache}},
+          "tests": r3, "r1_r2_s": phase_s})
 
 
 # Phase `stream`: the streaming check. (s1) the 100k-op history and its
@@ -2749,14 +3077,17 @@ def main() -> int:
             "encode": lambda: phase_encode(dev),
             "elle": lambda: phase_elle(dev, elle_rec),
             "cli": phase_cli,
-            "test": lambda: test_rows.update(phase_test(dev)),
+            "test": lambda: test_rows.update(phase_test(dev, work / "test")),
+            "replay": lambda: phase_replay(dev, kernels, test_rows),
             "stream": lambda: stream_launches.update(
                 phase_stream(dev, test_rows))}
-    for name in PHASES:
-        if name in phases:
-            t0 = time.perf_counter()
-            runs[name]()
-            emit({"phase_seconds": name, "s": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        for name in PHASES:
+            if name in phases:
+                t0 = time.perf_counter()
+                runs[name]()
+                emit({"phase_seconds": name, "s": time.perf_counter() - t0})
     if "ms" in elle_rec:
         kernels.append(elle_record(elle_rec))
     for rec, _b in kernels:

@@ -5,21 +5,22 @@ each key's history is checked on its own. Where the sub-checker is a
 Linearizable, or a Compose whose first-level entries include one (the
 register workload's {"linear", "timeline"}), and there is more than one
 key, every key's history is encoded and all of them are checked
-together for each such entry: the keys a dense table holds in ONE launch
-of the dense sweep (the key axis is the batch axis), or, when a key is
-longer than one scan, one key after another through the long sweep under
-their shared geometry; the others (a partition's keys with tens of
-forever-pending writes) through the batched sort tiers of the general
-path. The JAX package sends every key to the sort tiers once one of them
-is past the dense tables. A batched result settles a key
-only when it is valid: an invalid or unknown key is checked again on its
-own, which builds its counterexample witness; a key the tiers left
-"unknown" starts its own ladder past the capacities they proved too
-small (f_cap_floor). Keys the run's streaming check already settled
-valid (``opts["stream_results"]``) stay out of the batched launch: their
-Linearizable takes the streamed verdict. Every other composed checker
-(the timeline) runs per key. With ``opts["store_dir"]`` each key's
-encoded history is written there as history-<key>.npz.
+together for each such entry: the keys a dense table holds through the
+corpus scheduler (sched/engine.py) under their shared geometry, in
+launches of the dense sweep bucketed by step count (the key axis is the
+batch axis), a key longer than one scan through the long sweep; the
+others (a partition's keys with tens of forever-pending writes) through
+the batched sort tiers of the general path. The JAX package sends every
+key to the sort tiers once one of them is past the dense tables. A
+batched result settles a key only when it is valid: an invalid or
+unknown key is checked again on its own, which builds its counterexample
+witness; a key the tiers left "unknown" starts its own ladder past the
+capacities they proved too small (f_cap_floor). Keys the run's
+streaming check already settled valid (``opts["stream_results"]``) stay
+out of the batched launch: their Linearizable takes the streamed
+verdict. Every other composed checker (the timeline) runs per key. With
+``opts["store_dir"]`` each key's encoded history is written there as
+history-<key>.npz.
 """
 
 from __future__ import annotations
@@ -119,8 +120,9 @@ class IndependentChecker(Checker):
 def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]],
                           store_dir=None) -> dict[Any, dict]:
     """All keys checked together: the keys a dense table holds through the
-    dense route under one geometry, the others through the general path's
-    batched sort tiers, where a key the tiers cannot settle gets an
+    corpus scheduler (sched.check_corpus: length-bucketed launches of the
+    dense sweep under one geometry), the others through the general
+    path's batched sort tiers, where a key the tiers cannot settle gets an
     "unknown" entry with the f_cap_floor its own ladder starts from."""
     from ..ops import wgl3_kernels
 
@@ -154,9 +156,11 @@ def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]],
                                 "overflow": one["overflow"],
                                 "f_cap": one["f_cap"]}
     if dense_idx:
-        batch, _kernel = wgl3_kernels.check_batch_encoded_auto(
-            [encs[keys[i]] for i in dense_idx], lin.model, lin.device,
-            time_budget_s=lin.time_budget_s)
+        from .. import sched
+
+        batch, _kernel, _stats = sched.check_corpus(
+            [encs[keys[i]] for i in dense_idx], lin.model, f_cap=lin.f_cap,
+            device=lin.device, time_budget_s=lin.time_budget_s)
         out.update({
             keys[i]: {"valid": one["valid"],
                       "backend": lin.backend + "-batched",

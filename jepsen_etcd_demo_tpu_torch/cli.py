@@ -6,6 +6,9 @@
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
         [-w|--workload WORKLOAD] [--model MODEL] [--no-encode-cache]
         [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
+    python -m jepsen_etcd_demo_tpu_torch.cli corpus <store>
+        [--model MODEL] [--reencode] [--no-encode-cache]
+        [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
 
 `test` runs a whole Jepsen test against the in-process fake cluster, as
 the JAX package's `test --fake` does (the reference's `lein run test -w
@@ -43,6 +46,14 @@ keeps the encoded histories in <run>/.encode-cache/ unless
 {"valid": ...} and exits 0 iff valid is true, else 1 (invalid, unknown,
 or not checkable). --sweep-mode sets the long sweeps' mode
 (limits().sparse_mode) for the command.
+
+`corpus` re-checks every run of a store (the port's or the JAX
+package's) together through the corpus scheduler (sched/), one call a
+model, and prints the JAX verb's JSON ({"valid", "runs", "keys",
+"invalid", "kernel", "from_tensors", "wall_s", "launches",
+"padding_waste", "cache_hit_rate", "sweep_steps_sparse",
+"sweep_steps_dense", "configs_pruned", "sparse_overflow_rounds"}); it
+exits 0 iff every history is valid (cmd_corpus).
 """
 
 from __future__ import annotations
@@ -250,6 +261,146 @@ def cmd_analyze(args) -> int:
     return 0 if result.get("valid") is True else 1
 
 
+# -- corpus --------------------------------------------------------------
+
+def cmd_corpus(args) -> int:
+    """Corpus replay (BASELINE.json configs[4]): every stored run's
+    histories re-checked together, one scheduler call a model
+    (sched.check_corpus: length-bucketed launches of the dense sweep).
+    The model comes from the workload each run's test.json records
+    (CORPUS_MODELS per key, WHOLE_HISTORY_MODELS for the whole history;
+    --model replaces cas-register for register runs only); runs of other
+    workloads are skipped. A run's stored history-*.npz tensors are read
+    when they cover it (results.json's indep.key_count keys, or the one
+    tensor of a whole-history run) and were encoded under its model;
+    otherwise, and for every run under --reencode, its history.jsonl is
+    encoded again (Linearizable.encode) through the encode cache under
+    <store>/.encode-cache/, which --reencode refreshes and
+    --no-encode-cache leaves off."""
+    from .device import resolve_device
+    from .store import encode_cache
+    from .store.store import Store
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        print(json.dumps({"valid": "unknown"}), flush=True)
+        return 1
+    cache_root = (None if args.no_encode_cache else
+                  Store(args.store_root).root / encode_cache.CACHE_DIRNAME)
+    with encode_cache.activated(cache_root, refresh=args.reencode):
+        return _cmd_corpus_checked(args, device)
+
+
+def corpus_entries(args, device):
+    """({model name: [(run path, key, EncodedHistory)]}, runs, keys read
+    from stored tensors)."""
+    from .checkers import Linearizable, split_by_key
+    from .store.store import Store, read_encoded_tensors
+
+    by_model: dict[str, list] = {}
+    runs_seen = set()
+    n_from_tensors = 0
+    for run in Store(args.store_root).runs():
+        try:
+            workload = run.read_test().get("workload", "register")
+        except (ValueError, OSError):
+            workload = "register"
+        whole = workload in WHOLE_HISTORY_MODELS
+        model_name = (WHOLE_HISTORY_MODELS[workload] if whole
+                      else CORPUS_MODELS.get(workload))
+        if model_name is None:
+            print(f"# skipping {run.path}: workload {workload!r} is not "
+                  f"linearizability-checked", file=sys.stderr)
+            continue
+        if workload == "register":
+            model_name = args.model
+        if not args.reencode:
+            tensors = read_encoded_tensors(run.path, model_name)
+            if whole:
+                expected = 1
+            else:
+                try:
+                    expected = run.read_results()["indep"]["key_count"]
+                except (ValueError, OSError, KeyError, TypeError):
+                    expected = None
+            if tensors and len(tensors) == expected:
+                runs_seen.add(str(run.path))
+                n_from_tensors += len(tensors)
+                by_model.setdefault(model_name, []).extend(
+                    (str(run.path), k, enc) for k, enc in tensors)
+                continue
+        lin = Linearizable(model_name, device=device)
+        try:
+            history = run.read_history()
+            if whole:
+                keyed = {None: [op for op in history
+                                if op.process != "nemesis"]}
+            else:
+                keyed = split_by_key(history)
+        except (ValueError, OSError) as e:
+            print(f"# skipping {run.path}: {e}", file=sys.stderr)
+            continue
+        runs_seen.add(str(run.path))
+        for k, h in sorted(keyed.items(), key=lambda kv: str(kv[0])):
+            try:
+                # str(k): the tensor path's keys are file-name strings.
+                entry = (str(run.path), None if k is None else str(k),
+                         lin.encode(h))
+            except ValueError as e:
+                print(f"# skipping {run.path} key {k}: {e}",
+                      file=sys.stderr)
+                continue
+            by_model.setdefault(model_name, []).append(entry)
+    return by_model, len(runs_seen), n_from_tensors
+
+
+def _cmd_corpus_checked(args, device) -> int:
+    import time
+
+    from . import sched
+    from .models import get_model
+
+    by_model, n_runs, n_from_tensors = corpus_entries(args, device)
+    if not by_model:
+        print(json.dumps({"valid": True, "runs": 0, "keys": 0}), flush=True)
+        return 0
+    t0 = time.perf_counter()
+    invalid, kernels, n_keys = [], set(), 0
+    totals: dict = {}
+    for model_name, entries in sorted(by_model.items()):
+        results, kernel, stats = sched.check_corpus(
+            [e[2] for e in entries], get_model(model_name), device=device)
+        sched.fold_stats(totals, stats)
+        kernels.add(kernel)
+        n_keys += len(entries)
+        invalid.extend({"run": r, "key": k, "model": model_name}
+                       for (r, k, _), one in zip(entries, results)
+                       if one["valid"] is not True)
+    wall = time.perf_counter() - t0
+    out = {
+        "valid": not invalid,
+        "runs": n_runs,
+        "keys": n_keys,
+        "invalid": invalid,
+        "kernel": kernels.pop() if len(kernels) == 1 else "mixed",
+        "from_tensors": n_from_tensors,
+        "wall_s": round(wall, 3),
+        "launches": totals["launches"],
+        "padding_waste": (round(totals["steps_padded"]
+                                / totals["steps_real"], 4)
+                          if totals["steps_real"] else 0.0),
+        "cache_hit_rate": round(sched.kernel_cache().stats()["hit_rate"], 4),
+        "sweep_steps_sparse": totals["sweep_steps_sparse"],
+        "sweep_steps_dense": totals["sweep_steps_dense"],
+        "configs_pruned": totals["configs_pruned"],
+        "sparse_overflow_rounds": totals["sparse_overflow_rounds"],
+    }
+    print(json.dumps(out), flush=True)
+    return 0 if not invalid else 1
+
+
 # -- parser --------------------------------------------------------------
 
 # --sweep-mode -> limits().sparse_mode (ops/limits.py).
@@ -367,6 +518,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "every time)")
     _add_sweep_mode_flag(a)
     a.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    c = sub.add_parser("corpus", help="re-check every stored run's "
+                                      "histories together (corpus replay)")
+    c.add_argument("store_root", help="results store root directory")
+    c.add_argument("--model", default="cas-register", choices=sorted(REGISTRY),
+                   help="model of register runs (default cas-register)")
+    c.add_argument("--reencode", action="store_true",
+                   help="encode every run from history.jsonl instead of "
+                        "reading its stored history-*.npz tensors")
+    c.add_argument("--no-encode-cache", action="store_true",
+                   help="do not keep encoded histories under "
+                        "<store>/.encode-cache/")
+    _add_sweep_mode_flag(c)
+    c.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
 
 
@@ -378,7 +543,7 @@ def main(argv=None) -> int:
     if args.command == "test":
         return cmd_test(args)
     with sweep_mode(args.sweep_mode):
-        return cmd_analyze(args)
+        return (cmd_corpus if args.command == "corpus" else cmd_analyze)(args)
 
 
 if __name__ == "__main__":

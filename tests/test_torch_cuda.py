@@ -569,3 +569,60 @@ def test_streamed_key_equals_plain_stream_on_card(card):
     for f in ("valid", "survived", "dead_step", "max_frontier",
               "configs_explored"):
         assert g[f] == w[f], f
+
+
+@pytest.mark.parametrize("real,pads", [(9, 3), (5, 0), (1, 7)])
+def test_bucket_launch_with_all_pad_lanes_on_card(card, real, pads):
+    """A scheduler bucket launch whose b is not a multiple of 4, at a step
+    count a bucket above every real length: equal to the plain version,
+    each all-pad lane surviving with no work."""
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+
+    model = CASRegister()
+    encs = _encs(real, 30 + real)
+    k = max(wgl3.tight_k_slots(e) for e in encs)
+    cfg = wgl3.dense_config(model, k, max(e.max_value for e in encs))
+    steps = [encode_return_steps(reslot_events(e, k)) for e in encs]
+    r = wgl3.step_bucket(2 * max(s.n_steps for s in steps) + 1)
+    padded = steps + [engine._pad_rs(k)] * pads
+    got = engine.BucketLauncher(real + pads, r)(model, cfg, padded, card)
+    ln, tg, cm = wk.prepare_colmask(
+        model, cfg, *wgl3.stack_steps3(padded, r, card))
+    want = wk.sweep_reference(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
+    assert torch.equal(got, want)
+    assert got[real:].tolist() == [[1, 0, -1, 1, 0]] * pads
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_check_corpus_on_card_equals_plain(card, depth):
+    """The scheduler on the card, launches in flight up to `depth`, from
+    its own worker thread too: every result equals the plain versions'."""
+    from dataclasses import replace
+
+    from jepsen_etcd_demo_tpu_torch import sched
+    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
+
+    rng = random.Random(0x5C4ED)
+    encs = []
+    for i in range(40):
+        h = gen_register_history(rng, n_ops=rng.randrange(8, 400),
+                                 n_procs=8, p_info=0.0)
+        if i % 3 == 0:
+            h = mutate_history(rng, h)
+        encs.append(encode_register_history(h, k_slots=32))
+    prev = set_limits(replace(limits(), pod_pipeline_depth=depth))
+    try:
+        wk.reset_launches()
+        got, kernel, stats = sched.check_corpus(encs, CASRegister())
+        assert wk.launches["dense_sweep"] == stats["launches"] >= 3
+        threaded = sched.submit_corpus(encs, CASRegister()).result(300)
+    finally:
+        set_limits(prev)
+    want, _k, _s = sched.check_corpus(encs, CASRegister(), device="cpu")
+    assert got == threaded[0]
+    assert kernel == "wgl3-dense-cuda"
+    for g, w in zip(got, want):
+        for f in ("valid", "dead_step", "max_frontier", "configs_explored"):
+            assert g[f] == w[f]
