@@ -1143,7 +1143,116 @@ def phase_independent(dev) -> None:
           "ops_per_key": 1000, "valid": got["valid"], "launches": n_launch,
           "invalid_keys": sorted(k for k, r in got["results"].items()
                                  if r["valid"] is False),
-          "check_s": check_s})
+          "check_s": check_s,
+          "split": independent_split(dev, ops, {
+              k for k, r in got["results"].items() if r["valid"] is False})})
+
+
+def independent_split(dev, ops, invalid: set, reps: int = 3) -> dict:
+    """Where phase `independent`'s check_s goes, warm, `reps` times in
+    turn: the whole checker through the scheduler ("sched") and with the
+    route before it put back ("auto": check_batch_encoded_auto); then
+    the checker's parts: encoding every key, the dense half of each route
+    on the same encodings stage by stage, each stage synchronized (the
+    auto route's own `timings`; the scheduler's stages replayed with its
+    functions, and its launch's staging copy from pageable memory as the
+    route before it made it), and the own check of each `invalid` key
+    (witness included). Not counted: the phase's counts are read before
+    it."""
+    import numpy as np
+
+    from jepsen_etcd_demo_tpu_torch import sched
+    from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
+                                                     Linearizable,
+                                                     split_by_key)
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
+    from jepsen_etcd_demo_tpu_torch.ops.encode import (encode_return_steps,
+                                                       reslot_events)
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+
+    def auto_corpus(encs, model=None, f_cap=256, device=None,
+                    time_budget_s=None):
+        res, kernel = wk.check_batch_encoded_auto(
+            encs, model, device, time_budget_s=time_budget_s)
+        return res, kernel, {}
+
+    def sched_stages(encs, model) -> dict:
+        t, t0 = {}, [time.perf_counter()]
+
+        def lap(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            t[stage] = t.get(stage, 0.0) + now - t0[0]
+            t0[0] = now
+
+        dense_idx, _g = wk.partition_dense(encs, model)
+        k = max(wgl3.tight_k_slots(encs[i]) for i in dense_idx)
+        cfg = wgl3.dense_config(model, k,
+                                max(encs[i].max_value for i in dense_idx))
+        lap("partition_dense")
+        steps = [encode_return_steps(reslot_events(encs[i], k)
+                                     if encs[i].k_slots != k else encs[i],
+                                     dev) for i in dense_idx]
+        lap("return_steps")
+        buckets: dict[int, list] = {}
+        for s, r in zip(steps, engine.assign_step_buckets(
+                [s.n_steps for s in steps])):
+            buckets.setdefault(r, []).append(s)
+        rows, shapes = [], []
+        for r, part in sorted(buckets.items()):
+            b = engine._batch_bucket(len(part), len(part) + 64)
+            padded = part + [engine._pad_rs(k)] * (b - len(part))
+            shapes.append([b, r])
+            arrays = wgl3.stack_steps3(padded, r, dev)
+            lap("stack_h2d")
+            ln, tg, cm = wk.prepare_colmask(model, cfg, *arrays)
+            lap("prepare_colmask")
+            rows.append(wk.dense_sweep(ln, tg, cm, cfg,
+                                       wgl3.init_row(model, cfg))[:len(part)])
+            lap("kernel")
+            # The route before the scheduler staged from pageable memory.
+            padded_np = [p.padded_to(r) for p in padded]
+            _pageable = [torch.from_numpy(np.stack(
+                [getattr(p, f) for p in padded_np])).to(dev)
+                for f in ("slot_tabs", "slot_active", "targets")]
+            lap("stack_h2d_pageable")
+        wgl3.assemble_batch_results(
+            wgl3.unpack_np(torch.cat(rows).cpu().numpy()),
+            [s for _r, part in sorted(buckets.items()) for s in part], cfg)
+        lap("fetch_assemble")
+        t["shapes"] = shapes
+        return t
+
+    lin = Linearizable(device=dev)
+    keyed = split_by_key(ops)
+    real = sched.check_corpus
+    out = {"check_s": {"sched": [], "auto": []}, "encode_keys_s": [],
+           "dense": {"sched": [], "auto": []}, "invalid_keys_s": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        encs = [lin.encode(keyed[k]) for k in sorted(keyed, key=str)]
+        out["encode_keys_s"].append(time.perf_counter() - t0)
+        for route in ("sched", "auto"):
+            sched.check_corpus = real if route == "sched" else auto_corpus
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                IndependentChecker(Linearizable(device=dev)).check({}, ops)
+                torch.cuda.synchronize()
+                out["check_s"][route].append(time.perf_counter() - t0)
+            finally:
+                sched.check_corpus = real
+        timings: dict = {}
+        wk.check_batch_encoded_auto(encs, lin.model, dev, timings=timings)
+        out["dense"]["auto"].append(timings)
+        out["dense"]["sched"].append(sched_stages(encs, lin.model))
+        t0 = time.perf_counter()
+        for k in keyed:
+            if str(k) in invalid:
+                Linearizable(device=dev).check({}, keyed[k])
+        torch.cuda.synchronize()
+        out["invalid_keys_s"].append(time.perf_counter() - t0)
+    return out
 
 
 def partitioned_history(n_ops: int, p_info: float, seed: int, k_lo: int,
@@ -2493,7 +2602,7 @@ def hold_bucket_launch(dev, model) -> dict:
     ln, tg, cm = wk.prepare_colmask(model, cfg,
                                     *wgl3.stack_steps3(padded, r, dev))
     row0 = wgl3.init_row(model, cfg)
-    got = engine.BucketLauncher(b, r)(model, cfg, padded, dev)
+    got = engine.launch_bucket(model, cfg, padded, r, dev)
     want = wk.sweep_reference(ln, tg, cm, cfg, row0)
     assert torch.equal(got, wk.dense_sweep(ln, tg, cm, cfg, row0))
     err = int((got.long() - want.long()).abs().max().item())
@@ -2582,13 +2691,10 @@ def replay_tests(dev, test_rows: dict) -> dict:
 def phase_replay(dev, kernels, test_rows: dict) -> None:
     """Corpus replay (r1)-(r3) through `cli corpus` on the card; see the
     comment above REPLAY_KEYS."""
-    from dataclasses import replace
-
     from jepsen_etcd_demo_tpu_torch import sched
     from jepsen_etcd_demo_tpu_torch.checkers.oracle import check_events_oracle
     from jepsen_etcd_demo_tpu_torch.models import CASRegister
     from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
-    from jepsen_etcd_demo_tpu_torch.ops.limits import limits, set_limits
     from jepsen_etcd_demo_tpu_torch.sched import engine
     from jepsen_etcd_demo_tpu_torch.store import encode_cache
 
@@ -2623,22 +2729,9 @@ def phase_replay(dev, kernels, test_rows: dict) -> None:
         # on the shared width).
         entries = corpus_entries(store, dev)
         encs = [e for _r, _k, e in entries]
-        depth_s = {}
-        for depth in (4, 1):
-            # In-flight depths 4 (the default) and 1 (each launch read
-            # back before the next): the same results; the seconds say
-            # what the launch-ahead window hides.
-            prev = set_limits(replace(limits(), pod_pipeline_depth=depth))
-            try:
-                t1 = time.perf_counter()
-                res_d, kname, stats = sched.check_corpus(encs, model,
-                                                         device=dev)
-                depth_s[depth] = time.perf_counter() - t1
-            finally:
-                set_limits(prev)
-            if depth == 4:
-                res = res_d
-            assert res_d == res, "results differ between depths"
+        t1 = time.perf_counter()
+        res, kname, stats = sched.check_corpus(encs, model, device=dev)
+        check_corpus_s = time.perf_counter() - t1
         assert stats["launches"] == out["launches"] and \
             stats["padding_waste"] == out["padding_waste"], (stats, out)
         long_runs = {p for n, p in runs.items() if "long" in n}
@@ -2691,7 +2784,7 @@ def phase_replay(dev, kernels, test_rows: dict) -> None:
           "steps_padded": stats["steps_padded"],
           "single_launch_steps_padded": single,
           "cache_hit_rate": out["cache_hit_rate"], "setup_s": setup_s,
-          "check_corpus_s": {"depth4": depth_s[4], "depth1": depth_s[1]},
+          "check_corpus_s": check_corpus_s,
           "hold": hold,
           "reencode": {
               "keys": n_r2,

@@ -391,7 +391,7 @@ def _cmd_corpus_checked(args, device) -> int:
         "padding_waste": (round(totals["steps_padded"]
                                 / totals["steps_real"], 4)
                           if totals["steps_real"] else 0.0),
-        "cache_hit_rate": round(sched.kernel_cache().stats()["hit_rate"], 4),
+        "cache_hit_rate": round(sched.shape_hit_rate(), 4),
         "sweep_steps_sparse": totals["sweep_steps_sparse"],
         "sweep_steps_dense": totals["sweep_steps_dense"],
         "configs_pruned": totals["configs_pruned"],

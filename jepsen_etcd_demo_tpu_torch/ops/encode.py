@@ -460,17 +460,25 @@ class ReturnSteps:
     max_value: int = 0
 
     def padded_to(self, r_cap: int) -> "ReturnSteps":
-        r = self.slot_tabs.shape[0]
-        if r_cap < r:
-            raise EncodeError(f"cannot pad {r} return steps to {r_cap}")
-        tabs = np.zeros((r_cap,) + self.slot_tabs.shape[1:], np.int32)
-        act = np.zeros((r_cap, self.k_slots), bool)
-        tgt = np.full((r_cap,), -1, np.int32)
-        tabs[:r] = self.slot_tabs
-        act[:r] = self.slot_active
-        tgt[:r] = self.targets
+        tabs = np.empty((r_cap,) + self.slot_tabs.shape[1:], np.int32)
+        act = np.empty((r_cap, self.k_slots), bool)
+        tgt = np.empty((r_cap,), np.int32)
+        self.pad_into(tabs, act, tgt)
         return ReturnSteps(tabs, act, tgt, self.n_steps, self.n_ops,
                            self.k_slots, self.max_pending, self.max_value)
+
+    def pad_into(self, tabs: np.ndarray, act: np.ndarray,
+                 tgt: np.ndarray) -> None:
+        """Write the rows padded to len(tgt) return steps into the given
+        [r_cap, K, 4], [r_cap, K] and [r_cap] arrays (a caller's pinned
+        buffer, say): a pad row is an all-zero table with no active slot
+        and target -1."""
+        r, r_cap = self.slot_tabs.shape[0], tgt.shape[0]
+        if r_cap < r:
+            raise EncodeError(f"cannot pad {r} return steps to {r_cap}")
+        tabs[:r], tabs[r:] = self.slot_tabs, 0
+        act[:r], act[r:] = self.slot_active, False
+        tgt[:r], tgt[r:] = self.targets, -1
 
 
 def encode_return_steps(enc: EncodedHistory, device=None) -> ReturnSteps:

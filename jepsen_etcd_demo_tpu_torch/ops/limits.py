@@ -71,13 +71,6 @@ class KernelLimits:
     # Floor of the {2^k, 1.5*2^k} batch-axis buckets the scheduler pads
     # its launches to with all-pad (0-step) histories.
     batch_bucket_floor: int = 8
-    # Bucket launches in flight before the oldest one's result is read
-    # back (sched/pipeline.InflightWindow); 1 reads each launch back
-    # before the next. Results are the same at every depth.
-    pod_pipeline_depth: int = 4
-    # Entries of the scheduler's LRU of bucket launchers
-    # (sched/compile_cache.KernelCache).
-    kernel_cache_entries: int = 256
     # On-disk cap (MiB) of the encode cache (store/encode_cache.py): past
     # it the least recently used entries are removed; 0 = no cap.
     encode_cache_cap_mb: int = 2048

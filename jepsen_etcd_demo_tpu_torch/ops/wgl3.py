@@ -49,8 +49,8 @@ import numpy as np
 import torch
 
 from ..models.base import Model
-from .encode import (EncodedHistory, EncodeError, ReturnSteps,
-                     encode_return_steps, reslot_events)
+from .encode import (EncodedHistory, ReturnSteps, encode_return_steps,
+                     reslot_events)
 from .limits import limits
 
 
@@ -532,9 +532,9 @@ def batch_steps3(encs: Sequence[EncodedHistory], model: Model,
 
 
 def stack_steps3(steps: Sequence[ReturnSteps], r_cap: int, device):
-    """Pad to the common step count, stack, and put the arrays on
-    `device`: (slot_tabs int32[B,R,K,4], slot_active bool[B,R,K],
-    targets int32[B,R]), pads as ReturnSteps.padded_to writes them.
+    """Pad to the common step count (ReturnSteps.pad_into), stack, and put
+    the arrays on `device`: (slot_tabs int32[B,R,K,4], slot_active
+    bool[B,R,K], targets int32[B,R]).
 
     For a card the arrays are filled in pinned host memory and copied
     with non_blocking=True: the copy is queued behind the stream's
@@ -543,17 +543,12 @@ def stack_steps3(steps: Sequence[ReturnSteps], r_cap: int, device):
     dev = torch.device(device)
     pin = dev.type == "cuda"
     B, K = len(steps), steps[0].k_slots
-    tabs = torch.zeros((B, r_cap, K, 4), dtype=torch.int32, pin_memory=pin)
-    act = torch.zeros((B, r_cap, K), dtype=torch.bool, pin_memory=pin)
-    tgt = torch.full((B, r_cap), -1, dtype=torch.int32, pin_memory=pin)
+    tabs = torch.empty((B, r_cap, K, 4), dtype=torch.int32, pin_memory=pin)
+    act = torch.empty((B, r_cap, K), dtype=torch.bool, pin_memory=pin)
+    tgt = torch.empty((B, r_cap), dtype=torch.int32, pin_memory=pin)
     tn, an, gn = tabs.numpy(), act.numpy(), tgt.numpy()
     for i, s in enumerate(steps):
-        r = s.slot_tabs.shape[0]
-        if r > r_cap:
-            raise EncodeError(f"cannot pad {r} return steps to {r_cap}")
-        tn[i, :r] = s.slot_tabs
-        an[i, :r] = s.slot_active
-        gn[i, :r] = s.targets
+        s.pad_into(tn[i], an[i], gn[i])
     return tuple(x.to(dev, non_blocking=pin) for x in (tabs, act, tgt))
 
 

@@ -1,31 +1,23 @@
 """sched: the corpus scheduler.
 
-  * engine.py        - the length-bucketed batch scheduler over a corpus
-                       or a run's independent keys (check_corpus,
-                       submit_corpus)
-  * pipeline.py      - launch-ahead primitives (InflightWindow,
-                       double_buffer)
-  * compile_cache.py - the LRU of bucket launchers behind cache_hit_rate
+  * engine.py - the length-bucketed batch scheduler over a corpus or a
+                run's independent keys (check_corpus), with the launch
+                shapes behind `corpus`'s cache_hit_rate
 
 The JAX package's sched/ also warms XLA compilations at startup
-(warmup.py) and packs launches over a mesh (lpt_shard_order); the port
-has no XLA and no mesh yet.
+(warmup.py), caches compiled checkers (compile_cache.py), packs launches
+over a mesh (lpt_shard_order) and runs corpora on an executor thread
+(submit_corpus, with pipeline.py's helpers); the port has no XLA, no
+mesh and no caller of an executor yet.
 """
 
-from .compile_cache import KernelCache, kernel_cache
 from .engine import (FOLDABLE_STATS, assign_step_buckets, check_corpus,
-                     corpus_executor, fold_stats, submit_corpus)
-from .pipeline import InflightWindow, double_buffer
+                     fold_stats, shape_hit_rate)
 
 __all__ = [
     "FOLDABLE_STATS",
-    "InflightWindow",
-    "KernelCache",
     "assign_step_buckets",
     "check_corpus",
-    "corpus_executor",
-    "double_buffer",
     "fold_stats",
-    "kernel_cache",
-    "submit_corpus",
+    "shape_hit_rate",
 ]

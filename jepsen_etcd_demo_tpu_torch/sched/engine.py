@@ -8,10 +8,10 @@ limits().step_bucket_floor, so a bucket pads under 1.5x past the floor),
 the batch axis of each launch is padded to a bucket too (from
 limits().batch_bucket_floor, with all-pad 0-step histories whose rows are
 dropped), and each bucket is launched through the dense sweep
-(csrc/wgl3_sweep.cu). Up to limits().pod_pipeline_depth launches stay in
-flight: a launch's result is read back only when the window is full or
-drains, so the host stacks and copies bucket N+1 while the card sweeps
-bucket N (stack_steps3 stages through pinned memory).
+(csrc/wgl3_sweep.cu). Every bucket is launched before any result is
+read back, in one copy at the end, so the host stacks and copies bucket
+N+1 while the card sweeps bucket N (stack_steps3 stages through pinned
+memory).
 
 The routing is check_batch_encoded_auto's: histories past one scan
 (long_scan_max) take the long route one by one, and histories no dense
@@ -21,16 +21,13 @@ majority is padded and launched, never which kernel checks what, so
 results are those of the unbatched path.
 
 The JAX package's sched/engine.py, without its telemetry (spans, the
-scaling ledger, the health supervisor) and its mesh sharding
-(lpt_shard_order): the port has neither yet. `submit_corpus` runs
-check_corpus on one process-wide worker thread.
+scaling ledger, the health supervisor), its mesh sharding
+(lpt_shard_order) and its executor thread (submit_corpus): the port has
+none of these yet, nor a caller of the last.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
-from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
@@ -42,8 +39,6 @@ from ..ops import wgl3_kernels as wk
 from ..ops.encode import (EV_RETURN, ReturnSteps, encode_return_steps,
                           reslot_events)
 from ..ops.limits import limits
-from .compile_cache import kernel_cache
-from .pipeline import InflightWindow
 
 
 def assign_step_buckets(step_counts: Sequence[int]) -> list[int]:
@@ -76,26 +71,41 @@ def kernel_label(device: torch.device) -> str:
     return "wgl3-dense-cuda" if device.type == "cuda" else "wgl3-dense-plain"
 
 
-class BucketLauncher:
-    """The launch of one bucket shape: b histories of r return steps,
-    stacked and copied to the device (wgl3.stack_steps3), prepared there
-    (wgl3_kernels.prepare_colmask) and swept by wgl3_kernels.dense_sweep.
-    A call returns the device's int32[b, 5] rows (wgl3.PACKED_FIELDS)
-    without waiting for them."""
+def launch_bucket(model, cfg: wgl3.DenseConfig,
+                  steps: Sequence[ReturnSteps], r: int, device
+                  ) -> torch.Tensor:
+    """The launch of one bucket: the histories of `steps` padded to r
+    return steps, stacked and copied to the device (wgl3.stack_steps3),
+    prepared there (wgl3_kernels.prepare_colmask) and swept by
+    wgl3_kernels.dense_sweep. Returns the device's int32[len(steps), 5]
+    rows (wgl3.PACKED_FIELDS) without waiting for them."""
+    arrays = wgl3.stack_steps3(steps, r, device)
+    ln, tg, cm = wk.prepare_colmask(model, cfg, *arrays)
+    return wk.dense_sweep(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
 
-    def __init__(self, b: int, r: int):
-        if b < 1 or r < 1:
-            raise ValueError(f"a bucket launch needs b, r >= 1; got {b}, {r}")
-        self.b, self.r = b, r
 
-    def __call__(self, model, cfg: wgl3.DenseConfig,
-                 steps: Sequence[ReturnSteps], device) -> torch.Tensor:
-        if len(steps) != self.b:
-            raise ValueError(f"bucket of {self.b} histories given "
-                             f"{len(steps)}")
-        arrays = wgl3.stack_steps3(steps, self.r, device)
-        ln, tg, cm = wk.prepare_colmask(model, cfg, *arrays)
-        return wk.dense_sweep(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
+# The launch shapes (kernel, model name, K, S, b, r) this process has
+# launched, and how many launches found their shape already seen: their
+# share is `corpus`'s cache_hit_rate. The JAX package counts reuse of a
+# compiled checker there; the port builds each kernel once per process
+# (ops/build.py), so here it counts repeated shapes only.
+_seen_shapes: set[tuple] = set()
+shape_counts = {"hits": 0, "misses": 0}
+
+
+def _note_shape(shape: tuple) -> None:
+    if shape in _seen_shapes:
+        shape_counts["hits"] += 1
+    else:
+        _seen_shapes.add(shape)
+        shape_counts["misses"] += 1
+
+
+def shape_hit_rate() -> float:
+    """Launches whose shape was seen before, over all bucket launches of
+    this process (0.0 before the first)."""
+    n = shape_counts["hits"] + shape_counts["misses"]
+    return shape_counts["hits"] / n if n else 0.0
 
 
 class _Stats:
@@ -229,15 +239,7 @@ def _check_dense(encs, dense_idx, model, cfg: wgl3.DenseConfig,
             [steps_of[i].n_steps for i in short_idx])):
         buckets.setdefault(r, []).append(i)
     label = kernel_label(dev)
-    window = InflightWindow(lim.pod_pipeline_depth)
-
-    def read_back():
-        part, rows = window.pop()
-        out = wgl3.unpack_np(rows.cpu().numpy()[:len(part)])
-        for i, one in zip(part, wgl3.assemble_batch_results(
-                out, [steps_of[i] for i in part], cfg)):
-            results[i] = one
-
+    launched: list[tuple[list[int], torch.Tensor]] = []
     for r in sorted(buckets):
         idxs = buckets[r]
         # Launch-size cap: one launch's stacked slot tables stay within
@@ -247,18 +249,21 @@ def _check_dense(encs, dense_idx, model, cfg: wgl3.DenseConfig,
             part = idxs[c0:c0 + chunk]
             part_steps = [steps_of[i] for i in part]
             b = _batch_bucket(len(part), chunk)
-            launch = kernel_cache().get(
-                (label, model.name, k, cfg.n_states, b, r),
-                lambda: BucketLauncher(b, r))
-            rows = launch(model, cfg,
-                          part_steps + [_pad_rs(k)] * (b - len(part)), dev)
-            while window.full():
-                read_back()
-            window.push((part, rows))
+            _note_shape((label, model.name, k, cfg.n_states, b, r))
+            rows = launch_bucket(
+                model, cfg, part_steps + [_pad_rs(k)] * (b - len(part)), r,
+                dev)
+            launched.append((part, rows[:len(part)]))
             stats.record_launch(sum(s.n_steps for s in part_steps), b, r)
             kernels.add(label)
-    while window:
-        read_back()
+    if not launched:
+        return
+    # One read back of every launch's rows, after the last launch.
+    order = [i for part, _rows in launched for i in part]
+    host = torch.cat([rows for _part, rows in launched]).cpu().numpy()
+    for i, one in zip(order, wgl3.assemble_batch_results(
+            wgl3.unpack_np(host), [steps_of[i] for i in order], cfg)):
+        results[i] = one
 
 
 def _check_general(encs, general_idx, model, results: list, kernels: set,
@@ -285,42 +290,3 @@ def _check_general(encs, general_idx, model, results: list, kernels: set,
         too_long_all.extend(too_long)
     wk.ladder_tail(encs, model, results, kernels, too_long_all,
                    overflow_seeds, dev, time_budget_s)
-
-
-# -- the submit/await face ---------------------------------------------------
-#
-# check_corpus keeps its state per call, but the card is one serial
-# resource: submitters gain nothing by racing launches. submit_corpus
-# runs every submission on one process-wide worker thread.
-
-_executor_lock = threading.Lock()
-_executor: ThreadPoolExecutor | None = None
-
-
-def corpus_executor() -> ThreadPoolExecutor:
-    """The process-wide single-worker executor (created at first use)."""
-    global _executor
-    with _executor_lock:
-        if _executor is None:
-            _executor = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="sched-corpus")
-        return _executor
-
-
-def submit_corpus(encs: Sequence, model=None, f_cap: int = 256, device=None,
-                  time_budget_s: float | None = None) -> Future:
-    """check_corpus on the corpus executor: a Future of the same
-    (results, kernel, stats). The device is resolved in the caller's
-    thread (a missing card raises there) and made current on the worker,
-    whose own default device is not the caller's."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-
-    def run():
-        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
-               else contextlib.nullcontext())
-        with ctx:
-            return check_corpus(encs, model, f_cap, dev, time_budget_s)
-
-    return corpus_executor().submit(run)

@@ -135,6 +135,26 @@ def test_warm_replay_encodes_nothing(register_store, tmp_path, capsys):
             {k: cold[k] for k in ("valid", "runs", "keys", "invalid")}
 
 
+def test_cache_hit_rate_counts_repeated_launch_shapes(register_store,
+                                                      capsys, monkeypatch):
+    """cache_hit_rate is the share of this process's bucket launches
+    whose shape it launched before: a second replay of the same store
+    repeats every shape of the first."""
+    from jepsen_etcd_demo_tpu_torch.sched import engine
+
+    monkeypatch.setattr(engine, "_seen_shapes", set())
+    monkeypatch.setattr(engine, "shape_counts", {"hits": 0, "misses": 0})
+    store = str(register_store[0])
+    _rc, first = corpus(capsys, store)
+    n, h1 = first["launches"], engine.shape_counts["hits"]
+    assert n >= 1 and engine.shape_counts["misses"] == n - h1
+    assert first["cache_hit_rate"] == round(h1 / n, 4)
+    _rc, second = corpus(capsys, store)
+    assert second["launches"] == n
+    assert engine.shape_counts == {"hits": h1 + n, "misses": n - h1}
+    assert second["cache_hit_rate"] == round((h1 + n) / (2 * n), 4)
+
+
 def test_corpus_json_equals_the_jax_verbs_on_a_jax_store(tmp_path, capsys,
                                                          pin):
     """On a store the JAX package wrote (a register run with stale reads

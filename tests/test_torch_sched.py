@@ -2,8 +2,9 @@
 `sched.check_corpus` on the same seeded golden and fuzz corpora of mixed
 lengths: bucket assignment, per-history fields, the launch accounting,
 the general partition, alignment across buckets and launch-size chunks,
-in-flight depths 1 and 4, the single-history delegation, the launcher
-LRU, and the independent-keys checker on top of it.
+one read back after the last launch, the single-history delegation, the
+padding of a bucket launch, the launch-shape counts behind
+cache_hit_rate, and the independent-keys checker on top of it.
 
 Both packages' limits are pinned per test (`pin`, subsumption off in the
 port) and the JAX package sees one device (`one_device`). The tolerance
@@ -250,26 +251,34 @@ def test_results_align_across_buckets_and_chunks(pin):
         assert g["op_count"] == e.n_ops
 
 
-def test_results_equal_at_depths_1_and_4(pin, monkeypatch):
-    """The in-flight window changes when results are read back, never
-    what they are; it holds at most `depth` launches."""
+@pytest.mark.parametrize("budget", [None, 2000])
+def test_every_bucket_launches_before_any_read_back(pin, monkeypatch,
+                                                    budget):
+    """No launch waits for an earlier one's result: every bucket is
+    launched, then all rows are read back in one copy; with a launch-size
+    budget of 2000 stacked elements, every chunk too."""
+    if budget:
+        pin(stack_element_budget=budget)
     js, ps = mixed_corpus(0xDE7, 14, lo=8, hi=200)
-    held = []
+    events = []
+    launch, unpack = engine.launch_bucket, pwgl3.unpack_np
 
-    class Recording(engine.InflightWindow):
-        def push(self, entry):
-            super().push(entry)
-            held.append((self.depth, len(self)))
+    def recording_launch(*a, **kw):
+        events.append("launch")
+        return launch(*a, **kw)
 
-    monkeypatch.setattr(engine, "InflightWindow", Recording)
-    out = {}
-    for depth in (1, 4):
-        pin(pod_pipeline_depth=depth)
-        out[depth] = sched.check_corpus(ps, PM(), device=CPU)
-    assert out[1][0] == out[4][0] and out[1][2] == out[4][2]
-    assert all(n <= d for d, n in held)
-    assert max(n for d, n in held if d == 4) > 1
-    assert out[4][2]["launches"] >= 3
+    def recording_unpack(arr):
+        events.append(("read", len(arr)))
+        return unpack(arr)
+
+    monkeypatch.setattr(engine, "launch_bucket", recording_launch)
+    monkeypatch.setattr(pwgl3, "unpack_np", recording_unpack)
+    (want, _wk, wstats), (got, _k, stats) = both(js, ps)
+    assert_same_results(want, got)
+    n = stats["launches"]
+    assert n >= 3 and events == ["launch"] * n + [("read", len(ps))]
+    if budget:
+        assert n > len(stats["buckets"]), "no chunked bucket"
 
 
 def test_single_history_delegates_to_the_auto_router(pin):
@@ -281,27 +290,17 @@ def test_single_history_delegates_to_the_auto_router(pin):
     assert sched.check_corpus([], PM(), device=CPU)[:2] == ([], "none")
 
 
-def test_submit_corpus_equals_check_corpus(pin):
-    _js, ps = mixed_corpus(0x5B, 6)
-    fut = sched.submit_corpus(ps, PM(), device=CPU)
-    assert fut.result(timeout=120) == sched.check_corpus(ps, PM(),
-                                                         device=CPU)
-
-
 def test_no_card_means_no_fallback(pin):
-    """device None is cuda: without a card check_corpus and submit_corpus
-    (in the caller's thread) raise instead of running the plain
-    versions."""
+    """device None is cuda: without a card check_corpus raises instead
+    of running the plain versions."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     _js, ps = mixed_corpus(0x5C, 3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sched.check_corpus(ps, PM())
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        sched.submit_corpus(ps, PM())
 
 
-# -- the bucket launch and the launcher LRU ----------------------------------
+# -- the bucket launch and its launch shapes ----------------------------------
 
 def test_bucket_launch_with_all_pad_lanes(pin):
     """A launch of b = 13 lanes (not a multiple of 4): 10 histories and 3
@@ -316,52 +315,65 @@ def test_bucket_launch_with_all_pad_lanes(pin):
              for e in ps]
     r = pwgl3.step_bucket(2 * max(s.n_steps for s in steps) + 1)
     padded = steps + [engine._pad_rs(k)] * 3
-    rows = engine.BucketLauncher(13, r)(model, cfg, padded, CPU)
+    rows = engine.launch_bucket(model, cfg, padded, r, CPU)
     assert tuple(rows.shape) == (13, 5)
     for i, s in enumerate(steps):
-        alone = engine.BucketLauncher(1, s.n_steps)(model, cfg, [s], CPU)
+        alone = engine.launch_bucket(model, cfg, [s], s.n_steps, CPU)
         assert torch.equal(rows[i], alone[0]), i
     assert rows[10:].tolist() == [[1, 0, -1, 1, 0]] * 3
     assert {bool(x) for x in rows[:10, 0]} == {True, False}
 
 
-def test_launcher_lru_counts_hits_and_evicts(pin):
-    c = sched.KernelCache(capacity=2)
-    built = []
-    for key in ("a", "b", "c", "a"):
-        c.get((key,), lambda k=key: built.append(k) or k)
-    assert built == ["a", "b", "c", "a"]   # "a" was evicted, then rebuilt
-    assert c.stats() == {"hits": 0, "misses": 4, "entries": 2,
-                         "hit_rate": 0.0}
-    c.get(("a",), lambda: "never")
-    assert c.stats()["hits"] == 1
+def test_stack_pads_as_padded_to_writes(pin):
+    """stack_steps3 writes each lane as ReturnSteps.padded_to does (one
+    owner of the padding: pad_into), all-pad lanes included, and refuses
+    a history longer than the launch."""
+    _js, ps = mixed_corpus(0x57A, 5, lo=20, hi=90)
+    k = max(pwgl3.tight_k_slots(e) for e in ps)
+    steps = [penc.encode_return_steps(penc.reslot_events(e, k), CPU)
+             for e in ps] + [engine._pad_rs(k)] * 2
+    r = pwgl3.step_bucket(max(s.n_steps for s in steps))
+    tabs, act, tgt = pwgl3.stack_steps3(steps, r, CPU)
+    for i, s in enumerate(steps):
+        p = s.padded_to(r)
+        assert (tabs[i].numpy() == p.slot_tabs).all(), i
+        assert (act[i].numpy() == p.slot_active).all(), i
+        assert (tgt[i].numpy() == p.targets).all(), i
+    assert (tgt[-2:] == -1).all() and not act[-2:].any()
+    assert not tabs[-2:].any()
+    with pytest.raises(penc.EncodeError, match="cannot pad"):
+        pwgl3.stack_steps3(steps, max(s.n_steps for s in steps) - 1, CPU)
 
-    cache = sched.kernel_cache()
+
+def test_padded_to_writes_pads_past_the_real_rows():
+    _js, ps = mixed_corpus(0x57B, 1, lo=20, hi=40, mutate_every=0)
+    s = penc.encode_return_steps(ps[0], CPU)
+    p = s.padded_to(s.n_steps + 5)
+    assert p.n_steps == s.n_steps and p.targets.shape == (s.n_steps + 5,)
+    assert (p.slot_tabs[:s.n_steps] == s.slot_tabs).all()
+    assert (p.targets[s.n_steps:] == -1).all()
+    assert not p.slot_active[s.n_steps:].any()
+    assert not p.slot_tabs[s.n_steps:].any()
+    with pytest.raises(penc.EncodeError, match="cannot pad"):
+        s.padded_to(s.n_steps - 1)
+
+
+def test_repeated_launch_shapes_count_as_hits(pin, monkeypatch):
+    """A shape (kernel, model, K, S, b, r) launched before counts as a
+    hit: a second pass over the same corpus hits on every launch."""
+    monkeypatch.setattr(engine, "_seen_shapes", set())
+    monkeypatch.setattr(engine, "shape_counts", {"hits": 0, "misses": 0})
+    assert sched.shape_hit_rate() == 0.0
     _js, ps = mixed_corpus(0xCAC, 10, mutate_every=0)
     first = sched.check_corpus(ps, PM(), device=CPU)
-    h0, m0 = cache.hits, cache.misses
+    n = first[2]["launches"]
+    distinct = len(first[2]["buckets"])
+    assert engine.shape_counts == {"hits": n - distinct, "misses": distinct}
     second = sched.check_corpus(ps, PM(), device=CPU)
     assert second == first
-    assert cache.misses == m0 and cache.hits == h0 + first[2]["launches"]
-
-
-def test_inflight_window_and_double_buffer():
-    w = sched.InflightWindow(0)
-    assert w.depth == 1 and not w
-    w.push(1)
-    assert w.full() and len(w) == 1 and w.pop() == 1
-    staged = []
-
-    def stage(x):
-        staged.append(x)
-        return x * 10
-
-    out = []
-    for y in sched.double_buffer(range(4), stage):
-        out.append((y, len(staged)))
-    # Item N is handed over once item N+1 is staged.
-    assert out == [(0, 2), (10, 3), (20, 4), (30, 4)]
-    assert list(sched.double_buffer([], stage)) == []
+    assert engine.shape_counts == {"hits": 2 * n - distinct,
+                                   "misses": distinct}
+    assert sched.shape_hit_rate() == (2 * n - distinct) / (2 * n)
 
 
 # -- independent keys through the scheduler ----------------------------------
