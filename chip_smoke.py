@@ -2296,11 +2296,16 @@ def phase_cli() -> None:
 # configs[0]) and (b) configs[3]'s size over many keys, both under the
 # partition nemesis: a partition leaves some of their keys with tens of
 # forever-pending writes, past the dense tables (the sort search decides
-# them). The short runs' recovery wait is 1 s.
+# them). The short runs' recovery wait is 1 s. The fake cluster records
+# (b) as fast as the host's timers wake, not at the rate asked for: at
+# 3000 Hz 9,704-13,364 ops in 6 s on the H100 machines' hosts, and 7,458
+# on one, below TEST_MIN_OPS, so (b) asks for 4500 Hz. It keeps 6 s, so
+# that its partition, which starts at 5 s, lasts 1 s: a 9 s run tripled
+# the keys the sort search decides and quadrupled the CPU re-check.
 TEST_RUNS = (
     ("a", ["-w", "register", "--time-limit", "30", "--rate", "10",
            "--concurrency", "10", "--recovery-wait", "1", "--seed", "1"], 0),
-    ("b", ["-w", "register", "--time-limit", "6", "--rate", "3000",
+    ("b", ["-w", "register", "--time-limit", "6", "--rate", "4500",
            "--ops-per-key", "100", "--recovery-wait", "1", "--seed", "2"], 0),
     *((name, [*flags, "--time-limit", "2", "--recovery-wait", "1"], rc)
       for name, flags, rc in (
