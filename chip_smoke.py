@@ -1,7 +1,8 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --phases kernel # a subset, for debugging
+    python3 chip_smoke.py                  # every phase, one card
+    python3 chip_smoke.py --phases kernel  # a subset, for debugging
+    python3 chip_smoke.py --phases cluster # the real-cluster path alone
 
 Drives the port's main paths through the entry points a user calls, on
 the card. The register linearizability check, at the sizes of the JAX
@@ -39,11 +40,20 @@ by `analyze` on the host. Then the streaming check (`--check-mode
 stream`): the 100k-op history and its mutant fed op by op into a
 session, the JAX package's streaming lane, keys on the shared route and
 the global tier, each against the post-hoc check, and whole tests in
-stream mode and with --fail-fast. It builds the CUDA kernels from csrc/
-(one nvcc per source, side by side), holds each exactly equal to its
-plain PyTorch version on the card, checks verdicts against the host
-oracle, the whole-scan kernel and the other routes, and shows through
-the launch counters that each main path ran on its kernel.
+stream mode and with --fail-fast. Then phase `cluster`, the real-cluster
+path, `cli test` without --fake: etcd installed and started over SSH on
+a "node" that is this host (minietcd, db/minietcd.py, in etcd's place;
+ssh, scp and sshpass stand-ins; an apt-get stand-in that installs
+nothing), the register workload at 200 Hz under (c1) no fault, with
+password auth, (c2) kill -9 and restart, (c3) SIGSTOP and SIGCONT, and
+(c4) two co-hosted members that do not replicate, which the check must
+find invalid; each checked on the card, re-checked by `analyze --device
+cpu`, (c1) and (c4) also by `analyze --backend oracle`. It builds the
+CUDA kernels from csrc/ (one nvcc per source, side by side), holds each
+exactly equal to its plain PyTorch version on the card, checks verdicts
+against the host oracle, the whole-scan kernel and the other routes, and
+shows through the launch counters that each main path ran on its
+kernel.
 
 Output: one JSON line per phase; then the card's name and power limit as
 nvidia-smi reports them; then one JSON line describing each kernel (a
@@ -79,7 +89,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "families", "encode", "elle", "cli", "test", "replay", "stream")
+          "families", "encode", "elle", "cli", "test", "replay", "stream",
+          "cluster")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -103,8 +114,8 @@ KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
 # the first seed from GENERAL_SEED that has them; (b) 10,000 ops at p_info
 # 0.001, seed 1 (configs[3] under partitions), under a 240 s budget; (c)
 # 10,000 ops writing values 0..99,999 (unpacked sort keys); (d) invalid
-# mutants of (a); (e) 10 keys x 1000 ops (configs[2]), keys 7-9 past the
-# dense budget.
+# mutants of (a); (e) 10 keys x 1000 ops (configs[2]), keys 8-9 past the
+# dense budget (one settles on the global tier, one on the sort tiers).
 GENERAL_OPS, GENERAL_P_INFO, GENERAL_SEED = 1_000, 0.016, 0x6E0
 STRESS_OPS, STRESS_P_INFO, STRESS_SEED, STRESS_BUDGET_S = 10_000, 0.001, 1, 240
 HUGE_VALUES, HUGE_SEED = 100_000, 0xC0
@@ -119,8 +130,8 @@ LONG_OPS, SPARSE_OPS = 100_000, 50_000
 LONG_DEAD_AFTER = 40_000     # the long mutant dies past this return step
 # Steps of the 50k history's first window over which phase `sparse` holds
 # the sparse kernel and the dense shared-memory route against their plain
-# versions (a quarter of a full window: the plain runs set the time).
-SPARSE_CHECK_STEPS = 4096
+# versions (an eighth of a full window: the plain runs set the time).
+SPARSE_CHECK_STEPS = 2048
 # The few-block history (phase sparse): its ops, its timed steps, and its
 # timed steps re-slotted to K=17.
 FEW_OPS, FEW_CHECK_STEPS, FEW_K17_STEPS = 50_000, 1024, 256
@@ -1457,11 +1468,11 @@ def general_paths(dev, global_rec) -> None:
     assert res["valid"] in (True, False), res
     done("c", row)
 
-    # (e) 10 keys x 1000 ops, keys 7-9 past the dense budget.
+    # (e) 10 keys x 1000 ops, keys 8-9 past the dense budget.
     rng = random.Random(0xE0)
     per_key = [gen_register_history(rng, n_ops=1000, n_procs=10,
-                                    p_info=0.002) for _ in range(7)]
-    for j in range(3):
+                                    p_info=0.002) for _ in range(8)]
+    for j in range(2):
         per_key.append(partitioned_history(1000, 0.012,
                                            GENERAL_SEED + 100 * (j + 1),
                                            18, 20, 6)[0])
@@ -2372,17 +2383,17 @@ def run_cli(argv: list[str]) -> tuple[int, list[str]]:
 
 
 @contextlib.contextmanager
-def timed_checks(dev):
-    """compose.fake_test patched so that each test it builds times its
-    checker's check (ending in a device sync): yields the list the
-    seconds are appended to."""
+def timed_checks(dev, composer: str = "fake_test"):
+    """compose.<composer> (fake_test or etcd_test) patched so that each
+    test it builds times its checker's check (ending in a device sync):
+    yields the list the seconds are appended to."""
     from jepsen_etcd_demo_tpu_torch import compose
 
-    fake_test = compose.fake_test
+    make = getattr(compose, composer)
     seconds: list[float] = []
 
-    def timed_fake_test(opts, store=None):
-        test = fake_test(opts, store)
+    def timed_make(*args, **kw):
+        test = make(*args, **kw)
         check = test["checker"].check
 
         def timed(*args, **kw):
@@ -2397,11 +2408,11 @@ def timed_checks(dev):
         test["checker"].check = timed
         return test
 
-    compose.fake_test = timed_fake_test
+    setattr(compose, composer, timed_make)
     try:
         yield seconds
     finally:
-        compose.fake_test = fake_test
+        setattr(compose, composer, make)
 
 
 def cli_test(root: Path, name: str, flags: list[str], dev,
@@ -3131,6 +3142,242 @@ def phase_stream(dev, test_rows: dict) -> dict:
             "wgl3_sweep[global]": s3["launches"]["dense_sweep_global"]}
 
 
+# Phase `cluster`: the real-cluster path, `cli test` without --fake, the
+# reference's own use (install etcd over SSH, drive clients against it
+# while the nemesis kills or pauses it, check the history). It needs no
+# etcd and no sshd: each run's `etcd` is minietcd (db/minietcd.py, one
+# linearizable member), installed from its release-shaped tarball by
+# EtcdDB over SSHRunner through ssh, scp and sshpass stand-ins on PATH
+# (tests/torch_cluster_util.py, which the CPU tests share), and an `apt-get` stand-in records what the Debian prep
+# asks for and installs nothing. The partition and clock nemeses would
+# change the machine's iptables and clock, so no run takes them (the CPU
+# tests hold their commands to the JAX package's). Runs, register
+# workload, 10 workers asking 200 Hz: (c1) one node, noop, 10 s, ssh
+# password auth; (c2) kill -9 and restart, 20 s; (c3) SIGSTOP and
+# SIGCONT, 12 s; (c4) two co-hosted minietcds that do not replicate, a
+# broken cluster the check must catch, 6 s. Each run is a process of its
+# own (db/etcd.py reads its environment at import), the four side by
+# side; each run directory is re-checked by `analyze --device cpu`, (c1)
+# and (c4) also by `analyze --backend oracle`. A start settles 1 s (a
+# minietcd listens within a second of its launch here); (c2) lasts 20 s,
+# not the JAX kill lane's 32, to keep the script inside its time limit:
+# kill at 5 s, restart at 10, served until the next kill at ~16.
+CLUSTER_PASSWORD = "smoke-sekrit"
+CLUSTER_COMMON = ["-w", "register", "--concurrency", "10", "--rate", "200",
+                  "--recovery-wait", "2"]
+CLUSTER_RUNS = (
+    # (name, flags, exit code, co-hosted nodes)
+    ("c1", ["--nodes", "localhost", "--nemesis", "noop", "--time-limit",
+            "10", "--password", CLUSTER_PASSWORD], 0, False),
+    ("c2", ["--nodes", "localhost", "--nemesis", "kill", "--time-limit",
+            "20"], 0, False),
+    ("c3", ["--nodes", "localhost", "--nemesis", "pause", "--time-limit",
+            "12"], 0, False),
+    ("c4", ["--nodes", "localhost,127.0.0.1", "--nemesis", "noop",
+            "--time-limit", "6"], 1, True),
+)
+# A gate against a run that stalls, not against a slow host: half the
+# fewest ops a run recorded on the H100 machine (NVIDIA H100 80GB HBM3,
+# 700 W: c1 1,989, c2 3,959, c3 1,354, c4 1,209).
+CLUSTER_MIN_OPS = {"c1": 994, "c2": 1979, "c3": 677, "c4": 604}
+
+
+def cluster_util():
+    """tests/torch_cluster_util.py (the stand-ins, cluster_env,
+    free_port), loaded by path: the CPU tests share it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_cluster_util", ROOT / "tests" / "torch_cluster_util.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cluster_child(out: str, argv: list[str]) -> int:
+    """One run of phase `cluster` in its own process: `cli test` through
+    cli.main, the launch counters set to 0 just before it and read just
+    after, its check timed; writes {"rc", "launches", "check_s"} to
+    `out`."""
+    from jepsen_etcd_demo_tpu_torch import cli
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
+
+    dev = torch.device(argv[argv.index("--device") + 1])
+    with timed_checks(dev, "etcd_test") as seconds:
+        wk.reset_launches()
+        rc = cli.main(argv)
+        launches = dict(wk.launches)
+    Path(out).write_text(json.dumps({"rc": rc, "launches": launches,
+                                     "check_s": seconds}))
+    return rc
+
+
+def kill_daemons(root: Path) -> list[int]:
+    """SIGKILL every daemon whose pidfile is left under `root`'s install
+    dir (teardown removes them; a failed run may not)."""
+    killed = []
+    for pidfile in (root / "opt" / "etcd").glob("*.pid"):
+        try:
+            pid = int(pidfile.read_text().strip())
+            os.kill(pid, 9)
+            killed.append(pid)
+        except (ValueError, OSError):
+            pass
+    return killed
+
+
+def nemesis_values(hist: list, key: str) -> list[int]:
+    """Indices of the nemesis completions whose value names `key`."""
+    return [i for i, op in enumerate(hist)
+            if op["process"] == "nemesis" and op["type"] == "info"
+            and isinstance(op["value"], dict) and op["value"].get(key)]
+
+
+def check_cluster_run(name: str, rc: int, line: dict, res: dict,
+                      run_dir: Path, root: Path) -> None:
+    """What each run must show beyond its exit code and verdict."""
+    hist = [json.loads(ln) for ln in
+            (run_dir / "history.jsonl").read_text().splitlines()]
+    assert any(op["type"] == "ok" for op in hist), name
+    # Each member bound its own ports (free_port picks them in advance).
+    member_logs = sorted(run_dir.glob("*-etcd*.log"))
+    assert member_logs, name
+    for log in member_logs:
+        assert "serving client requests" in log.read_text(), (name, log)
+    if name == "c1":
+        test_json = (run_dir / "test.json").read_text()
+        assert CLUSTER_PASSWORD not in test_json, name
+        assert "<redacted>" in test_json, name
+        assert "minietcd" in (run_dir / "localhost-etcd.log").read_text()
+        assert not (root / "opt" / "etcd").exists(), "install dir left"
+    if name == "c2":
+        kills = nemesis_values(hist, "killed")
+        restarts = nemesis_values(hist, "restarted")
+        assert kills and restarts, name
+        assert any(op["type"] == "ok" for op in hist[:kills[0]]), name
+        assert any(op["type"] == "ok" for op in hist[restarts[0]:]), name
+    if name == "c3":
+        assert nemesis_values(hist, "paused"), name
+        assert nemesis_values(hist, "resumed"), name
+    if name == "c4":
+        bad = [k for k, r in res["indep"]["results"].items()
+               if r["valid"] is False]
+        witnesses = sorted(run_dir.glob("linear*.json"))
+        assert bad and witnesses, name
+        w = json.loads(witnesses[0].read_text())
+        assert w["valid"] is False and w.get("op"), w
+        assert res["indep"]["results"][bad[0]]["linear"]["failed_op"]
+
+
+def invalid_keys(res: dict) -> list:
+    return sorted(k for k, r in res["indep"]["results"].items()
+                  if r["valid"] is not True)
+
+
+def phase_cluster(dev, root: Path) -> dict:
+    """Runs (c1)-(c4) of CLUSTER_RUNS side by side, each in a process of
+    its own through cluster_child, its check on `dev`; then each run
+    directory re-checked in this process by `analyze --device cpu` (the
+    same valid and linear fields) and (c1) and (c4) by `analyze --backend
+    oracle` (the same valid and invalid keys). Returns the rows by run."""
+    util = cluster_util()
+    procs, rows, logs = {}, {}, []
+    try:
+        for name, flags, want_rc, cohosted in CLUSTER_RUNS:
+            run_root = root / name
+            port_map = None
+            if cohosted:
+                ports = [util.free_port() for _ in range(4)]
+                port_map = (f"localhost={ports[0]}/{ports[1]},"
+                            f"127.0.0.1={ports[2]}/{ports[3]}")
+            env = util.cluster_env(run_root, port_map, settle_s=1.0)
+            argv = ["test", *CLUSTER_COMMON, *flags,
+                    "--store", str(run_root / "store"),
+                    "--device", dev.type]
+            logs.append(open(run_root / "child.log", "w"))
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; sys.exit(chip_smoke."
+                 "cluster_child(sys.argv[1], sys.argv[2:]))",
+                 str(run_root / "child.json"), *argv],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=logs[-1], text=True), time.perf_counter())
+        for name, (p, t0) in procs.items():
+            out, _ = p.communicate(timeout=300)
+            rows[name] = {"wall_s": time.perf_counter() - t0, "out": out}
+    finally:
+        for name, (p, _t0) in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            left = kill_daemons(root / name)
+            assert not left, (name, "daemons left", left)
+        for f in logs:
+            f.close()
+    # Launches of the grouped sweep (the scheduler's buckets, row 2) and of
+    # the single-history route (a key re-checked alone, row 1).
+    grouped_total, single_total = 0, 0
+    for name, flags, want_rc, _cohosted in CLUSTER_RUNS:
+        run_root = root / name
+        child = json.loads((run_root / "child.json").read_text()) \
+            if (run_root / "child.json").is_file() else None
+        assert child is not None, (name, (run_root / "child.log")
+                                   .read_text()[-3000:])
+        line = json.loads(rows[name]["out"].splitlines()[-1])
+        run_dir = next((run_root / "store").glob("*/*/results.json")).parent
+        res = json.loads((run_dir / "results.json").read_text())
+        routes = key_routes(res)
+        row = {"rc": child["rc"], "valid": line["valid"],
+               "op_count": line["op_count"],
+               "run_seconds": line["run_seconds"],
+               "wall_s": rows[name]["wall_s"],
+               "check_s": child["check_s"][0],
+               "key_count": res["indep"].get("key_count"),
+               "routes": routes, "launches": child["launches"],
+               "apt_get": (run_root / "apt-get.log").read_text()
+               .splitlines() if (run_root / "apt-get.log").is_file()
+               else []}
+        assert row["rc"] == want_rc, (name, row,
+                                      (run_root / "child.log")
+                                      .read_text()[-3000:])
+        assert line["valid"] is (want_rc == 0), (name, row)
+        assert line["op_count"] >= CLUSTER_MIN_OPS[name], row
+        if dev.type == "cuda":
+            # No fallback: every key was checked on the card, (c1)'s
+            # through the dense sweep.
+            assert all("cuda" in b for b in routes), routes
+            assert name != "c1" or \
+                row["launches"]["dense_sweep_grouped"] >= 1, row
+        grouped_total += row["launches"]["dense_sweep_grouped"]
+        single_total += (row["launches"]["dense_sweep"]
+                         - row["launches"]["dense_sweep_grouped"])
+        check_cluster_run(name, row["rc"], line, res, run_dir, run_root)
+        row["recheck_s"] = recheck(name, run_dir, row["rc"], line,
+                                   verdict_fields(res))
+        if name in ("c1", "c4"):
+            t0 = time.perf_counter()
+            arc, alines = run_cli(["analyze", str(run_dir), "--backend",
+                                   "oracle", "--device", dev.type])
+            row["oracle_s"] = time.perf_counter() - t0
+            again = json.loads((run_dir / "results.json").read_text())
+            assert arc == row["rc"] and json.loads(alines[-1]) == {
+                "valid": line["valid"]}, (name, arc, alines)
+            assert invalid_keys(again) == invalid_keys(res), name
+            assert set(key_routes(again)) == {"oracle"}, key_routes(again)
+        emit({"phase": "cluster_run", "name": name, **row})
+        rows[name] = row
+    emit({"phase": "cluster", "ok": True,
+          "exit_codes": {n: r["rc"] for n, r in rows.items()},
+          "op_count": {n: r["op_count"] for n, r in rows.items()},
+          "check_s": {n: r["check_s"] for n, r in rows.items()},
+          "recheck_s": {n: r["recheck_s"] for n, r in rows.items()},
+          "dense_sweep_launches": {"grouped": grouped_total,
+                                   "single": single_total},
+          "apt_get": {n: r["apt_get"] for n, r in rows.items()}})
+    return {"wgl3_sweep[corpus]": grouped_total,
+            "wgl3_sweep[single]": single_total}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3159,6 +3406,7 @@ def main() -> int:
     global_rec: dict = {}
     test_rows: dict = {}
     stream_launches: dict = {}
+    cluster_launches: dict = {}
     runs = {"peak": lambda: phase_peak(dev, kernels, peak),
             "kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
@@ -3178,7 +3426,9 @@ def main() -> int:
             "test": lambda: test_rows.update(phase_test(dev, work / "test")),
             "replay": lambda: phase_replay(dev, kernels, test_rows),
             "stream": lambda: stream_launches.update(
-                phase_stream(dev, test_rows))}
+                phase_stream(dev, test_rows)),
+            "cluster": lambda: cluster_launches.update(
+                phase_cluster(dev, work / "cluster"))}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         for name in PHASES:
@@ -3191,6 +3441,8 @@ def main() -> int:
     for rec, _b in kernels:
         if rec["name"] in stream_launches:
             rec["stream_launches"] = stream_launches[rec["name"]]
+        if rec["name"] in cluster_launches:
+            rec["cluster_launches"] = cluster_launches[rec["name"]]
     print(card, flush=True)
     emit({"kernels": kernels_line(kernels, peak.get("card"))})
     emit({"ok": True, "device": {"platform": "gpu",

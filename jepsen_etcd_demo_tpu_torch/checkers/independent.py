@@ -67,14 +67,14 @@ class IndependentChecker(Checker):
     def _batchable(self) -> dict[str | None, Linearizable]:
         """The Linearizable checkers a batched launch serves, by result
         name: the sub-checker itself (None) or a Compose's first-level
-        entries."""
-        if isinstance(self.sub_checker, Linearizable):
-            return {None: self.sub_checker}
+        entries, those that search on the device; an oracle-backed one
+        checks each key on its own."""
         if isinstance(self.sub_checker, Compose):
-            return {name: sub for name, sub
-                    in self.sub_checker.checkers.items()
-                    if isinstance(sub, Linearizable)}
-        return {}
+            subs = self.sub_checker.checkers.items()
+        else:
+            subs = [(None, self.sub_checker)]
+        return {name: sub for name, sub in subs
+                if isinstance(sub, Linearizable) and sub.backend == "torch"}
 
     def check(self, test: dict, history: Sequence[Op],
               opts: dict | None = None) -> dict[str, Any]:
@@ -163,7 +163,7 @@ def _batched_linearizable(lin: Linearizable, keyed: dict[Any, list[Op]],
             device=lin.device, time_budget_s=lin.time_budget_s)
         out.update({
             keys[i]: {"valid": one["valid"],
-                      "backend": lin.backend + "-batched",
+                      "backend": lin.dense_backend + "-batched",
                       "op_count": one["op_count"],
                       "dead_step": one["dead_step"],
                       "max_frontier": one["max_frontier"],

@@ -13,7 +13,9 @@ carries the counterexample witness (checkers/witness.py). With
 ``opts["store_dir"]``, the witness and the encoded history
 (``history[-<key>].npz``) are written there. A valid verdict of the
 run's streaming check (``opts["stream_results"]``, stream/engine.py)
-settles the history without a second sweep.
+settles the history without a second sweep. ``backend="oracle"``
+searches with the pure-Python oracle instead (checkers/oracle.py), an
+independent check of the sweep's verdict.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..models import Model, get_model
 from ..ops.encode import EncodedHistory, SlotOverflow, encode_history
 from ..ops.op import Op
 from .base import Checker
+from .oracle import _event_to_step, check_events_oracle
 
 
 def _skipped_witness(dead_step: int, *errors: BaseException) -> dict:
@@ -44,8 +47,13 @@ class Linearizable(Checker):
     k_slots = 24
 
     def __init__(self, model: Model | str = "cas-register", device=None,
-                 time_budget_s: float | None = None, f_cap: int = 256):
+                 time_budget_s: float | None = None, f_cap: int = 256,
+                 backend: str = "torch"):
         self.model = get_model(model) if isinstance(model, str) else model
+        if backend not in ("torch", "oracle"):
+            raise ValueError(f"unknown backend {backend!r}")
+        # "torch": the sweeps (on self.device); "oracle": the host search.
+        self.backend = backend
         self.device = resolve_device(device)
         # Wall-clock bound on a long (windowed) sweep and on the general
         # path's ladder; expiry yields the tri-state "unknown".
@@ -54,7 +62,8 @@ class Linearizable(Checker):
         self.f_cap = f_cap
 
     @property
-    def backend(self) -> str:
+    def dense_backend(self) -> str:
+        """The `backend` a dense sweep's result names."""
         return f"torch-dense-{'cuda' if self.device.type == 'cuda' else 'plain'}"
 
     def encode(self, history: Sequence[Op]) -> EncodedHistory:
@@ -89,6 +98,8 @@ class Linearizable(Checker):
         stream_results, or None. An invalid or absent one takes the whole
         path: an invalid key needs its witness, and the two verdicts are
         equal, so checking again never flips one."""
+        if self.backend != "torch":
+            return None
         pre = (stream_results or {}).get(key)
         if not isinstance(pre, dict) or pre.get("model") != self.model.name:
             return None
@@ -136,11 +147,20 @@ class Linearizable(Checker):
             write_encoded_tensor(store_dir, (opts or {}).get("key"), enc,
                                  self.model.name)
         if enc.n_events == 0:
-            return {"valid": True, "op_count": 0, "backend": self.backend}
-        # f_cap_floor: the independent checker's batched sort tiers may
-        # have proven smaller capacities overflow; the ladder starts past.
-        res = self._check_device(
-            enc, f_cap_floor=int((opts or {}).get("f_cap_floor", 0)))
+            return {"valid": True, "op_count": 0,
+                    "backend": ("oracle" if self.backend == "oracle"
+                                else self.dense_backend)}
+        if self.backend == "oracle":
+            res = check_events_oracle(enc, self.model).to_dict()
+            res["dead_step"] = _event_to_step(enc, res.pop("dead_event"))
+            res["backend"] = "oracle"
+            res["op_count"] = enc.n_ops
+        else:
+            # f_cap_floor: the independent checker's batched sort tiers
+            # may have proven smaller capacities overflow; the ladder
+            # starts past them.
+            res = self._check_device(
+                enc, f_cap_floor=int((opts or {}).get("f_cap_floor", 0)))
         if res["valid"] is False:
             self._explain(res, enc, history, opts)
         return res
@@ -156,7 +176,7 @@ class Linearizable(Checker):
             [enc], self.model, self.device,
             time_budget_s=self.time_budget_s)
         out = results[0]
-        res = {"valid": out["valid"], "backend": self.backend,
+        res = {"valid": out["valid"], "backend": self.dense_backend,
                "op_count": enc.n_ops,
                "dead_step": int(out["dead_step"]),
                "max_frontier": int(out["max_frontier"]),

@@ -4,7 +4,8 @@ Wing-Gong/Lowe frontier search with set-based dedup: keep the set of
 (model-state, linearized-bitmask) configurations, close it under firing
 pending ops, and at each return keep only the configurations that have
 linearized the returning op. Independent of the dense sweep, so the tests
-and the chip smoke run hold the sweep's verdicts against it.
+and the chip smoke run hold the sweep's verdicts against it, and
+`Linearizable(backend="oracle")` checks with it alone.
 """
 
 from __future__ import annotations
@@ -24,13 +25,26 @@ class OracleResult:
     max_frontier: int = 0
     configs_explored: int = 0
 
+    def to_dict(self):
+        return {
+            "valid": self.valid,
+            "dead_event": self.dead_event,
+            "max_frontier": self.max_frontier,
+            "configs_explored": self.configs_explored,
+        }
+
     def dead_step(self, enc: EncodedHistory) -> int:
-        """The dead event as a return-step index: returns strictly before
-        it (the dense sweep's dead_step)."""
-        if self.dead_event < 0:
-            return -1
-        return int((np.asarray(enc.events[: self.dead_event, 0])
-                    == EV_RETURN).sum())
+        """The dead event as a return-step index (the dense sweep's
+        dead_step)."""
+        return _event_to_step(enc, self.dead_event)
+
+
+def _event_to_step(enc: EncodedHistory, dead_event: int) -> int:
+    """An event index as a return-step index: the count of returns
+    strictly before the fatal one (-1 stays -1)."""
+    if dead_event < 0:
+        return -1
+    return int((np.asarray(enc.events[:dead_event, 0]) == EV_RETURN).sum())
 
 
 def check_events_oracle(enc: EncodedHistory, model: Model) -> OracleResult:

@@ -1,19 +1,26 @@
 """Command line of the port.
 
-    python -m jepsen_etcd_demo_tpu_torch.cli test -w WORKLOAD --fake
+    python -m jepsen_etcd_demo_tpu_torch.cli test -w WORKLOAD [--fake]
         [-q] [-r HZ] [--ops-per-key N] [--time-limit S] [--seed N] ...
+        [--nodes N1,N2,...] [--username U] [--private-key F]
+        [--password P] [--ssh-port N] [--version V] [--nemesis NAME]
         [--check-mode post|stream] [--fail-fast] [--device cuda|cpu]
     python -m jepsen_etcd_demo_tpu_torch.cli analyze <run-dir|history.jsonl>
-        [-w|--workload WORKLOAD] [--model MODEL] [--no-encode-cache]
-        [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
+        [-w|--workload WORKLOAD] [--model MODEL] [--backend torch|oracle]
+        [--no-encode-cache] [--sweep-mode auto|dense|sparse]
+        [--device cuda|cpu]
     python -m jepsen_etcd_demo_tpu_torch.cli corpus <store>
         [--model MODEL] [--reencode] [--no-encode-cache]
         [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
 
-`test` runs a whole Jepsen test against the in-process fake cluster, as
-the JAX package's `test --fake` does (the reference's `lein run test -w
-register`, src/jepsen/etcdemo.clj:146-199): the workload's generator
-drives its client and the fake nemesis, the recorded history is checked
+`test` runs a whole Jepsen test, as the JAX package's `test` does (the
+reference's `lein run test -w register`, src/jepsen/etcdemo.clj:146-199):
+against an etcd cluster on --nodes, installed and started over ssh
+(compose.etcd_test; --username, --private-key, --password through
+sshpass, --ssh-port; etcd --version, the db/etcd.py
+JEPSEN_TPU_ETCD_* variables), or with --fake against the in-process fake
+cluster (compose.fake_test). The workload's generator drives its client
+and the nemesis, the recorded history is checked
 on the device (cuda by default; it is resolved before the run starts and
 never falls back to the host), and the run directory
 <store>/<name>/<timestamp>/ gets test.json, history.jsonl, results.json,
@@ -23,12 +30,13 @@ prints {"valid", "op_count", "run_seconds"} per run and exits 0 iff every
 run is valid. With `--check-mode stream` the history is checked while the
 run goes on (stream/), and `--fail-fast` ends a run as soon as that check
 falsifies it; results.json then says `check_mode: "stream"` and carries a
-`stream` record. The real-cluster path (without --fake) is not ported.
+`stream` record.
 
 `analyze` re-checks a stored run as the JAX package's `analyze` does. The
 workload comes from -w/--workload, else from the run's test.json
 ("workload"), else register; the model from --model, else the
-workload's:
+workload's; --backend oracle searches with the pure-Python oracle
+instead of the sweeps (an independent cross-check):
   * register and queue: per key against cas-register and fifo-queue,
     through the independent-keys checker (a history whose values are not
     (key, value) pairs is checked as one history);
@@ -67,7 +75,7 @@ import sys
 from dataclasses import replace
 from pathlib import Path
 
-from .compose import FAKE_NEMESES, WORKLOADS, check_budget
+from .compose import NEMESES, WORKLOADS, check_budget
 from .models import REGISTRY
 from .ops.op import INVOKE, history_from_jsonl
 
@@ -127,6 +135,9 @@ def _test_opts(args) -> dict:
         "store_root": args.store,
         "no_nemesis": args.no_nemesis,
         "nemesis": args.nemesis,
+        "version": args.version,
+        "ssh": {"username": args.username, "private_key": args.private_key,
+                "password": args.password, "port": args.ssh_port},
         "stale_read_prob": args.stale_read_prob,
         "lost_write_prob": args.lost_write_prob,
         "duplicate_cas_prob": args.duplicate_cas_prob,
@@ -141,14 +152,10 @@ def _test_opts(args) -> dict:
 
 
 def cmd_test(args) -> int:
-    from .compose import fake_test
+    from .compose import etcd_test, fake_test
     from .device import resolve_device
     from .runner import event_loop, run_test
 
-    if not args.fake:
-        print("error: the real-cluster path is not ported; run with --fake",
-              file=sys.stderr)
-        return 2
     try:
         # Before the run: a check that cannot run must not cost a run.
         resolve_device(args.device)
@@ -159,8 +166,8 @@ def cmd_test(args) -> int:
     for i in range(args.test_count):
         opts = _test_opts(args)
         opts["seed"] = args.seed + i
-        result = asyncio.run(run_test(fake_test(opts)),
-                             loop_factory=event_loop)
+        test = fake_test(opts) if args.fake else etcd_test(opts)
+        result = asyncio.run(run_test(test), loop_factory=event_loop)
         print(json.dumps({"valid": result.get("valid"),
                           "op_count": result.get("op_count"),
                           "run_seconds": round(
@@ -226,7 +233,8 @@ def _checker(args, test: dict, history):
         model = args.model or CORPUS_MODELS.get(workload, "cas-register")
     per_history = Compose({
         "linear": Linearizable(model, device=args.device,
-                               time_budget_s=check_budget(test)),
+                               time_budget_s=check_budget(test),
+                               backend=args.backend),
         "timeline": TimelineChecker()})
     if workload in WHOLE_HISTORY_MODELS or not is_keyed(history):
         return per_history
@@ -439,7 +447,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "NVIDIA GPU")
     sub = p.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("test", help="run a test against the fake cluster")
+    t = sub.add_parser("test", help="run a test against an etcd cluster "
+                                    "or the fake cluster")
     t.add_argument("-w", "--workload", required=True,
                    choices=sorted(WORKLOADS), help="test workload to run")
     t.add_argument("-q", "--quorum", action="store_true", default=False,
@@ -461,17 +470,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="client worker count")
     t.add_argument("--test-count", type=positive_int, default=1,
                    help="number of times to run the test")
+    t.add_argument("--username", default="root", help="ssh username")
+    t.add_argument("--private-key", default=None, help="ssh identity file")
+    t.add_argument("--password", default=None,
+                   help="ssh password (rides sshpass: it travels in the "
+                        "SSHPASS environment variable, never on argv)")
+    t.add_argument("--ssh-port", type=positive_int, default=22,
+                   help="ssh port on every node")
     t.add_argument("--seed", type=int, default=0,
                    help="schedule and value rng seed")
     t.add_argument("--store", default="store", help="results store root")
     t.add_argument("--fake", action="store_true",
                    help="hermetic run against the in-process fake cluster "
-                        "(required: the real-cluster path is not ported)")
+                        "(no ssh, no etcd)")
     t.add_argument("--no-nemesis", action="store_true",
                    help="disable fault injection")
     t.add_argument("--nemesis", default="partition",
-                   choices=sorted(FAKE_NEMESES),
-                   help="fault to inject on the nemesis channel")
+                   choices=list(NEMESES),
+                   help="fault to inject on the nemesis channel (kill, "
+                        "pause, clock-strobe and partition-bridge/-ring "
+                        "need a real cluster, not --fake)")
+    t.add_argument("--version", default="v3.1.5",
+                   help="etcd version to install")
     t.add_argument("--stale-read-prob", type=float, default=0.0,
                    help="[fake] inject stale non-quorum reads")
     t.add_argument("--lost-write-prob", type=float, default=0.0,
@@ -512,6 +532,9 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--model", default=None, choices=sorted(REGISTRY),
                    help="model to check against (default: the workload's, "
                         "cas-register for register, fifo-queue for queue)")
+    a.add_argument("--backend", default="torch", choices=["torch", "oracle"],
+                   help="torch (default): the sweeps on --device; oracle: "
+                        "the pure-Python search")
     a.add_argument("--no-encode-cache", action="store_true",
                    help="do not keep encoded histories under "
                         "<run>/.encode-cache/ (encode from history.jsonl "

@@ -8,8 +8,9 @@ noop-test-style defaults (:156-157). The JAX package's eight workloads,
 with the same generators, clients and checkers; every checker a workload
 constructs runs on the test's device, `opts["device"]` (None: cuda).
 
-Only the hermetic composition over the in-process fake cluster
-(`fake_test`) is ported; the real etcd composition is not.
+`etcd_test` composes a test against a real etcd cluster (Debian OS
+prep, the etcd DB, SSH control, the real nemeses); `fake_test` the
+hermetic one over the in-process fake cluster.
 """
 
 from __future__ import annotations
@@ -23,11 +24,16 @@ from .checkers.perf import PerfChecker
 from .checkers.timeline import TimelineChecker
 from .clients import (FakeKVStore, MultiRegisterClient, MutexClient,
                       QueueClient, RegisterClient, SetClient, TxnClient,
-                      fake_conn_factory)
+                      etcd_conn_factory, fake_conn_factory)
+from .db import EtcdDB, debian_setup
 from .db.fake import FakeDB
 from .models import FIFOQueue, MultiRegister
-from .nemesis import (FakeClockSkewNemesis, FakeIsolatedNodeNemesis,
-                      FakePartitionNemesis, NoopNemesis)
+from .nemesis import (ClockSkewNemesis, ClockStrobeNemesis,
+                      FakeClockSkewNemesis, FakeIsolatedNodeNemesis,
+                      FakePartitionNemesis, KillNemesis, NoopNemesis,
+                      PartitionBridge, PartitionIsolatedNode,
+                      PartitionMajoritiesRing, PartitionRandomHalves,
+                      PauseNemesis)
 
 # noop-test-style defaults (n1..n5, concurrency, time limit), overridden
 # by the options, then by the workload (src/jepsen/etcdemo.clj:156-157).
@@ -349,15 +355,55 @@ FAKE_NEMESES = {
 }
 
 
-def pick_nemesis(opts: dict, store: FakeKVStore):
-    """The fake cluster's nemesis for opts["nemesis"] (partition by
-    default). The real cluster's nemeses are not ported."""
+def _pause_nemesis(db, seed: int) -> PauseNemesis:
+    # Per node: nodes of the port map have pidfiles of their own.
+    from .db.etcd import pidfile_for
+
+    return PauseNemesis(pidfile_for, seed=seed)
+
+
+# The real cluster's nemeses (jepsen.nemesis: partition, kill, pause,
+# clock skew), by --nemesis name. The bridge and ring partitions are
+# real-cluster shapes only: the fake's one isolated set cannot overlap.
+NEMESES = {
+    "partition": lambda db, seed: PartitionRandomHalves(seed=seed),
+    "partition-node": lambda db, seed: PartitionIsolatedNode(seed=seed),
+    "partition-bridge": lambda db, seed: PartitionBridge(seed=seed),
+    "partition-ring": lambda db, seed: PartitionMajoritiesRing(seed=seed),
+    "clock": lambda db, seed: ClockSkewNemesis(seed=seed),
+    "clock-strobe": lambda db, seed: ClockStrobeNemesis(seed=seed),
+    "kill": lambda db, seed: KillNemesis(db, seed=seed),
+    "pause": _pause_nemesis,
+    "noop": lambda db, seed: NoopNemesis(),
+}
+
+
+def pick_nemesis(opts: dict, store: Optional[FakeKVStore] = None, db=None):
+    """The nemesis for opts["nemesis"] (partition by default): the fake
+    cluster's twin when `store` is given, else the real cluster's, whose
+    kill nemesis drives `db`."""
     kind = opts.get("nemesis", "partition")
-    if kind not in FAKE_NEMESES:
-        raise ValueError(
-            f"nemesis {kind!r} not available in --fake mode "
-            f"(have: {sorted(FAKE_NEMESES)})")
-    return FAKE_NEMESES[kind](store, int(opts.get("seed", 0)))
+    seed = int(opts.get("seed", 0))
+    if store is not None:
+        if kind not in FAKE_NEMESES:
+            raise ValueError(
+                f"nemesis {kind!r} not available in --fake mode "
+                f"(have: {sorted(FAKE_NEMESES)})")
+        return FAKE_NEMESES[kind](store, seed)
+    if kind not in NEMESES:
+        raise ValueError(f"unknown nemesis {kind!r} (have: {sorted(NEMESES)})")
+    return NEMESES[kind](db, seed)
+
+
+def etcd_test(opts: dict) -> dict:
+    """The real composition (the reference's etcd-test, :146-175): Debian
+    OS prep, the etcd DB, SSH control, the nemesis opts name. Each
+    node's client dials the port its daemon listens on (db/etcd.py)."""
+    test = compose_test(opts, etcd_conn_factory())
+    test["db"] = EtcdDB(version=opts.get("version", "v3.1.5"))
+    test["os_setup"] = lambda runner, node: debian_setup(runner, node)
+    test["nemesis"] = pick_nemesis(test, db=test["db"])
+    return test
 
 
 def fake_test(opts: dict, store: Optional[FakeKVStore] = None) -> dict:

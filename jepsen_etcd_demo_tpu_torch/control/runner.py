@@ -1,9 +1,11 @@
-"""Command runners: run a node's commands as local subprocesses."""
+"""Command runners: SSH to a node, or run its commands on this host."""
 
 from __future__ import annotations
 
 import asyncio
+import os
 import shlex
+import shutil
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -94,12 +96,82 @@ class LocalRunner(Runner):
                                  300.0)
 
 
+class SSHRunner(Runner):
+    """Drive a node over the system ssh and scp binaries: the role of the
+    reference's clj-ssh sessions (jepsen.etcdemo.iml:21,38), with the
+    command quoted and wrapped in sudo when the user is not root."""
+
+    def __init__(self, node: str, username: str = "root",
+                 port: int = 22, private_key: Optional[str] = None,
+                 password: Optional[str] = None,
+                 connect_timeout_s: int = 10):
+        self.node = node
+        self.username = username
+        self.port = port
+        self.private_key = private_key
+        self.password = password
+        self.connect_timeout_s = connect_timeout_s
+
+    def _common_opts(self) -> list[str]:
+        # A password rides sshpass: OpenSSH takes none on argv or stdin,
+        # and BatchMode=yes would turn off the prompt sshpass answers, so
+        # BatchMode guards key auth only. Host keys are not checked: the
+        # nodes of a test are machines built for it.
+        opts = (["-o", "NumberOfPasswordPrompts=1"] if self.password
+                else ["-o", "BatchMode=yes"])
+        opts += ["-o", "StrictHostKeyChecking=no",
+                 "-o", "UserKnownHostsFile=/dev/null",
+                 "-o", "LogLevel=ERROR"]
+        if self.private_key:
+            opts += ["-i", self.private_key]
+        return opts
+
+    def _transport(self, argv: list[str]) -> tuple[list[str], Optional[dict]]:
+        """The (argv, env) of one ssh or scp call. A password reaches
+        sshpass through the environment (`-e`, SSHPASS), never argv,
+        which every local `ps` shows."""
+        if not self.password:
+            return argv, None
+        if shutil.which("sshpass") is None:
+            raise RuntimeError(
+                "--password auth rides the sshpass binary (OpenSSH "
+                "refuses passwords on argv by design) and sshpass is "
+                "not on PATH; install it or use --private-key")
+        env = dict(os.environ, SSHPASS=self.password)
+        return ["sshpass", "-e"] + argv, env
+
+    def _ssh_argv(self, cmd: str) -> list[str]:
+        return (["ssh", "-p", str(self.port),
+                 "-o", f"ConnectTimeout={self.connect_timeout_s}"]
+                + self._common_opts()
+                + [f"{self.username}@{self.node}", cmd])
+
+    async def run(self, cmd: str, su: bool = False, check: bool = True,
+                  timeout_s: float = 120.0) -> CommandResult:
+        if su and self.username != "root":
+            cmd = f"sudo sh -c {shellquote(cmd)}"
+        argv, env = self._transport(self._ssh_argv(cmd))
+        return await self._spawn(argv, check, timeout_s, env)
+
+    def _scp_argv(self, src: str, dst: str) -> list[str]:
+        return ["scp", "-P", str(self.port)] + self._common_opts() + [src, dst]
+
+    async def download(self, remote_path: str, local_path: str,
+                       check: bool = False) -> CommandResult:
+        argv, env = self._transport(self._scp_argv(
+            f"{self.username}@{self.node}:{remote_path}", local_path))
+        return await self._spawn(argv, check, 300.0, env)
+
+
 def runner_for(test: dict, node: str) -> Runner:
-    """The control-plane runner a test's config asks for. Only local mode
-    (the fake cluster) exists here: the SSH runner of the real-cluster
-    path is not ported."""
+    """The control-plane runner a test's config asks for: this host in
+    local mode (the fake cluster), else ssh with test["ssh"]'s user,
+    port, key and password."""
     if test.get("local_mode"):
         return LocalRunner(node)
-    raise NotImplementedError(
-        "the real-cluster path (SSH control) is not ported; run with "
-        "--fake")
+    ssh = test.get("ssh", {})
+    return SSHRunner(node,
+                     username=ssh.get("username", "root"),
+                     port=ssh.get("port", 22),
+                     private_key=ssh.get("private_key"),
+                     password=ssh.get("password"))

@@ -2,11 +2,17 @@
 by :start/:stop ops on the nemesis generator channel
 (src/jepsen/etcdemo.clj:138-143) and healed in the final phase (:170-171).
 
-Only the nemeses of the fake cluster are ported (partition,
-partition-node, clock, noop); the iptables, kill, pause and strobe
-nemeses of the real-cluster path are not."""
+The real cluster's nemeses (the iptables partition family, kill, pause,
+clock skew and strobe) act through the control plane; the fake twins of
+the partition, isolated-node and clock nemeses act on the in-process
+fake cluster."""
 
 from .base import Nemesis, NoopNemesis  # noqa: F401
-from .clock import FakeClockSkewNemesis  # noqa: F401
-from .partition import (FakeIsolatedNodeNemesis,  # noqa: F401
-                        FakePartitionNemesis, bisect_nodes)
+from .clock import (ClockSkewNemesis, ClockStrobeNemesis,  # noqa: F401
+                    FakeClockSkewNemesis)
+from .partition import (  # noqa: F401
+    FakeIsolatedNodeNemesis, FakePartitionNemesis, GrudgePartitioner,
+    PartitionBridge, PartitionIsolatedNode, PartitionMajoritiesRing,
+    PartitionRandomHalves, bisect_nodes, random_halves,
+)
+from .process_faults import KillNemesis, PauseNemesis  # noqa: F401

@@ -45,9 +45,13 @@ from .wgl3_sparse import MAX_BLOCKS, sparse_plan
 
 # Kernel launches since the last reset, per wrapper: each wrapper adds one
 # where it launches its kernel and nowhere else. chip_smoke.py reads them
-# to show which kernels the main path ran on.
-launches = {"dense_sweep": 0, "dense_sweep_resumable": 0,
-            "dense_sweep_global": 0, "sparse_sweep_resumable": 0}
+# to show which kernels the main path ran on. dense_sweep counts every
+# fresh sweep; dense_sweep_grouped counts those of them that swept one of
+# the corpus scheduler's buckets (the JAX package's grouped kernel), so
+# the difference is the single-history route's.
+launches = {"dense_sweep": 0, "dense_sweep_grouped": 0,
+            "dense_sweep_resumable": 0, "dense_sweep_global": 0,
+            "sparse_sweep_resumable": 0}
 
 # Table sizes in bits (S * 2^K): up to SHARED_TABLE_BITS a table lives in
 # one block's shared memory (128 KiB); past it, up to GLOBAL_TABLE_BITS
@@ -241,14 +245,17 @@ def _stream(x: torch.Tensor):
 
 def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
                 cfg: wgl3.DenseConfig, row0: int, *,
-                slot_table: str | None = None) -> torch.Tensor:
+                slot_table: str | None = None,
+                grouped: bool = False) -> torch.Tensor:
     """Run the dense sweep from a fresh start: ln int32[B], tg int32[B,R],
     cm int32[B,R,S,K] -> int32[B, 5] in wgl3.PACKED_FIELDS order.
 
     On CUDA tensors this launches csrc/wgl3_sweep.cu on the current stream
     (it raises on anything the kernel does not take), its register route's
     slot table where `slot_table` says (SLOT_TABLES); on CPU tensors it
-    runs the plain version."""
+    runs the plain version. `grouped` marks a launch of a corpus
+    scheduler's bucket, which launches["dense_sweep_grouped"] counts as
+    well."""
     check_geometry(cfg)
     _check_slot_table(slot_table)
     if not 0 <= row0 < cfg.n_states:
@@ -262,6 +269,8 @@ def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
                       cm.data_ptr(), out.data_ptr(), None, None, B, R,
                       cfg.n_states, cfg.k_slots, row0, _stream(cm))
     launches["dense_sweep"] += 1
+    if grouped:
+        launches["dense_sweep_grouped"] += 1
     return out
 
 

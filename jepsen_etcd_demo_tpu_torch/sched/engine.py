@@ -81,7 +81,8 @@ def launch_bucket(model, cfg: wgl3.DenseConfig,
     rows (wgl3.PACKED_FIELDS) without waiting for them."""
     arrays = wgl3.stack_steps3(steps, r, device)
     ln, tg, cm = wk.prepare_colmask(model, cfg, *arrays)
-    return wk.dense_sweep(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
+    return wk.dense_sweep(ln, tg, cm, cfg, wgl3.init_row(model, cfg),
+                          grouped=True)
 
 
 # The launch shapes (kernel, model name, K, S, b, r) this process has

@@ -525,14 +525,14 @@ def session_for_test(test: dict):
 
 
 def _find_streamable(checker) -> Optional[tuple]:
-    """The first Linearizable of the checker tree and whether it sits
-    under an IndependentChecker: (lin, keyed)."""
+    """The first device-backed Linearizable of the checker tree and
+    whether it sits under an IndependentChecker: (lin, keyed)."""
     from ..checkers.compose import Compose
     from ..checkers.independent import IndependentChecker
     from ..checkers.linearizable import Linearizable
 
     if isinstance(checker, Linearizable):
-        return checker, False
+        return (checker, False) if checker.backend == "torch" else None
     if isinstance(checker, IndependentChecker):
         sub = _find_streamable(checker.sub_checker)
         return (sub[0], True) if sub is not None else None

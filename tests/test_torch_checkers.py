@@ -293,7 +293,8 @@ def test_cli_check_budget_reaches_linearizable(tmp_path, test):
 
     run, h = _c1_run(tmp_path, {"workload": "register", **test})
     assert cli.check_budget(test) == jbudget(test)
-    args = argparse.Namespace(workload=None, model=None, device="cpu")
+    args = argparse.Namespace(workload=None, model=None, device="cpu",
+                              backend="torch")
     checker = cli._checker(args, cli._read_test(run), h)
     assert isinstance(checker, IndependentChecker)
     lin = checker.sub_checker.checkers["linear"]

@@ -84,7 +84,13 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.stream.elle",
               "jepsen_etcd_demo_tpu_torch.store.encode_cache",
               "jepsen_etcd_demo_tpu_torch.sched",
-              "jepsen_etcd_demo_tpu_torch.sched.engine"):
+              "jepsen_etcd_demo_tpu_torch.sched.engine",
+              "jepsen_etcd_demo_tpu_torch.control.daemon",
+              "jepsen_etcd_demo_tpu_torch.db.etcd",
+              "jepsen_etcd_demo_tpu_torch.db.debian",
+              "jepsen_etcd_demo_tpu_torch.db.minietcd",
+              "jepsen_etcd_demo_tpu_torch.clients.etcd",
+              "jepsen_etcd_demo_tpu_torch.nemesis.process_faults"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):

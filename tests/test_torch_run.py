@@ -242,9 +242,11 @@ def test_batched_compose_route_equals_unbatched(runs):
                for r in batched["results"].values())
 
 
-def test_cli_test_verb_on_cpu(tmp_path, capsys):
+def test_cli_test_verb_on_cpu(tmp_path, capsys, monkeypatch):
     """`test --fake --device cpu` prints JAX's result line and exits 0 iff
-    valid; without --fake it refuses, without starting a run."""
+    valid; without --fake it composes the real cluster's test
+    (compose.etcd_test) with the ssh options, here swapped for the fake
+    cluster's so that no ssh runs."""
     store = tmp_path / "store"
     argv = ["test", "-w", "register", "--fake", "--device", "cpu",
             "--time-limit", "0.8", "--rate", "100", "--recovery-wait", "0.1",
@@ -258,8 +260,20 @@ def test_cli_test_verb_on_cpu(tmp_path, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert [json.loads(s)["valid"] for s in lines[-2:]] == [False, False]
     assert len(Store(store).runs()) == 3
+    from jepsen_etcd_demo_tpu_torch import compose
+
+    seen = []
+    monkeypatch.setattr(compose, "etcd_test", lambda opts: (
+        seen.append(opts), compose.fake_test(opts))[1])
     bare = tmp_path / "bare"
     assert cli.main(["test", "-w", "register", "--device", "cpu",
-                     "--store", str(bare)]) == 2
-    assert not bare.exists()
+                     "--time-limit", "0.5", "--rate", "50",
+                     "--recovery-wait", "0.1", "--username", "u",
+                     "--password", "pw", "--ssh-port", "2222",
+                     "--store", str(bare)]) == 0
+    assert [o["ssh"] for o in seen] == [{"username": "u",
+                                          "private_key": None,
+                                          "password": "pw", "port": 2222}]
+    assert seen[0]["version"] == "v3.1.5"
+    assert len(Store(bare).runs()) == 1
     shutil.rmtree(store)
