@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --phases kernel  # a subset, for debugging
     python3 chip_smoke.py --phases cluster # the real-cluster path alone
+    python3 chip_smoke.py --phases serve   # checking as a service alone
 
 Drives the port's main paths through the entry points a user calls, on
 the card. The register linearizability check, at the sizes of the JAX
@@ -17,7 +18,7 @@ default dense table holds: the sweep's global tier (tables split over
 thread-block clusters) against its plain version at every size it takes,
 2^21 to 2^26 bits, then
 partitioned histories (1000 and 10,000 ops with indeterminate ops piling
-up, 10,000 ops of huge values, an invalid mutant with its
+up, 7,000 ops of huge values, an invalid mutant with its
 sort-checkpoint witness, 10 keys split between the dense launch and the
 sort tiers). First it measures the card's int32 ALU
 peak with the port of bench.py's probe (csrc/alu_peak.cu), the yardstick
@@ -48,7 +49,16 @@ nothing), the register workload at 200 Hz under (c1) no fault, with
 password auth, (c2) kill -9 and restart, (c3) SIGSTOP and SIGCONT, and
 (c4) two co-hosted members that do not replicate, which the check must
 find invalid; each checked on the card, re-checked by `analyze --device
-cpu`, (c1) and (c4) also by `analyze --backend oracle`. It builds the
+cpu`, (c1) and (c4) also by `analyze --backend oracle`. Phase `serve`
+(between replay and stream) is checking as a service: `cli serve
+--check` as a subprocess on
+the card, 8 tenants on 8 threads each POSTing 128 corpus-shaped
+histories of 150 ops (every 16th a mutant), a 10k-op history submitted
+without waiting and polled, a streaming session fed that history in
+1,000-op POSTs and a keyed one of 10 keys x 1,000 ops; every verdict
+against this process's own check, the daemon healthy with no failed
+batch, every verdict a run in its store, and its launches by
+route read from /serve/stats. It builds the
 CUDA kernels from csrc/ (one nvcc per source, side by side), holds each
 exactly equal to its plain PyTorch version on the card, checks verdicts
 against the host oracle, the whole-scan kernel and the other routes, and
@@ -89,8 +99,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PHASES = ("peak", "kernel", "long_kernel", "general_kernel", "elle_kernel",
           "corpus", "single", "long", "sparse", "independent", "general",
-          "families", "encode", "elle", "cli", "test", "replay", "stream",
-          "cluster")
+          "families", "encode", "elle", "cli", "test", "replay", "serve",
+          "stream", "cluster")
 LIBS = ("alu_peak", "wgl3_sweep", "wgl3_sparse", "elle_accumulate")
 CSRC = "jepsen_etcd_demo_tpu_torch/csrc"
 PALLAS = "jepsen_etcd_demo_tpu/ops/wgl3_pallas.py"
@@ -113,12 +123,13 @@ KERNELS = {"alu_peak": (f"{CSRC}/alu_peak.cu", "bench.py:125"),
 # configs[1]) with at least 10 indeterminate ops and a tight K of 17-20,
 # the first seed from GENERAL_SEED that has them; (b) 10,000 ops at p_info
 # 0.001, seed 1 (configs[3] under partitions), under a 240 s budget; (c)
-# 10,000 ops writing values 0..99,999 (unpacked sort keys); (d) invalid
-# mutants of (a); (e) 10 keys x 1000 ops (configs[2]), keys 8-9 past the
-# dense budget (one settles on the global tier, one on the sort tiers).
+# 7,000 ops writing values 0..99,999 (unpacked sort keys at its K=16);
+# (d) invalid mutants of (a); (e) 10 keys x 1000 ops (configs[2]), keys
+# 8-9 past the dense budget (one settles on the global tier, one on the
+# sort tiers).
 GENERAL_OPS, GENERAL_P_INFO, GENERAL_SEED = 1_000, 0.016, 0x6E0
 STRESS_OPS, STRESS_P_INFO, STRESS_SEED, STRESS_BUDGET_S = 10_000, 0.001, 1, 240
-HUGE_VALUES, HUGE_SEED = 100_000, 0xC0
+HUGE_OPS, HUGE_VALUES, HUGE_SEED = 7_000, 100_000, 0xC0
 # Geometries (S, K) of the global tier's check: every size it takes,
 # 2^21 to 2^26 bits.
 GLOBAL_GEOMS = ((8, 18), (8, 19), (8, 20), (8, 21), (8, 22), (8, 23))
@@ -128,6 +139,10 @@ WITNESS_LAG = 4
 # Sizes of the long paths (the bench_long recipe and the sparse lane).
 LONG_OPS, SPARSE_OPS = 100_000, 50_000
 LONG_DEAD_AFTER = 40_000     # the long mutant dies past this return step
+# Steps of the 100k history's first window over which phase `long` holds
+# the resumable dense kernel against its plain version (a quarter of a
+# full window: the plain run sets the time).
+LONG_CHECK_STEPS = 4096
 # Steps of the 50k history's first window over which phase `sparse` holds
 # the sparse kernel and the dense shared-memory route against their plain
 # versions (an eighth of a full window: the plain runs set the time).
@@ -944,7 +959,8 @@ def phase_long(dev, kernels) -> None:
     del tg, cm
 
     rec, b = window_record("wgl3_sweep[resume]", model, cfg, rs, dev, False,
-                           0, counts["dense_sweep_resumable"], reps=3)
+                           0, counts["dense_sweep_resumable"], reps=3,
+                           window=LONG_CHECK_STEPS)
     kernels.append((rec, b))
 
     mutant = late_mutant(h, 0.62)
@@ -972,6 +988,7 @@ def phase_long(dev, kernels) -> None:
           "max_frontier": res["max_frontier"],
           "configs_explored": res["configs_explored"],
           "window_kernel_ms": rec["ms"], "window_plain_ms": rec["plain_ms"],
+          "window_check_steps": LONG_CHECK_STEPS,
           "mutant": {"dead_step": bad["dead_step"],
                      "failed_op": bad["failed_op"], "witness_rung": rung,
                      "window_start_step": witness.get("window_start_step"),
@@ -1456,7 +1473,7 @@ def general_paths(dev, global_rec) -> None:
     done("b", row)
 
     # (c) huge values: S > 32, no dense rung, unpacked sort keys.
-    h_c = gen_register_history(random.Random(HUGE_SEED), n_ops=STRESS_OPS,
+    h_c = gen_register_history(random.Random(HUGE_SEED), n_ops=HUGE_OPS,
                                n_procs=10, p_info=STRESS_P_INFO,
                                value_range=HUGE_VALUES)
     row, res, enc_c = general_check(lin, h_c)
@@ -2449,18 +2466,18 @@ def cli_test(root: Path, name: str, flags: list[str], dev,
 
 
 def recheck(name: str, run_dir: Path, rc: int, line: dict, want: dict,
-            fields=verdict_fields) -> float:
-    """`analyze --device cpu` of a run directory: the run's exit code and
-    verdict, and `fields` of the rewritten results.json equal to `want`;
-    returns its seconds."""
+            fields=verdict_fields, device: str = "cpu") -> float:
+    """`analyze --device <device>` of a run directory: the run's exit code
+    and verdict, and `fields` of the rewritten results.json equal to
+    `want`; returns its seconds."""
     t0 = time.perf_counter()
-    arc, alines = run_cli(["analyze", str(run_dir), "--device", "cpu"])
+    arc, alines = run_cli(["analyze", str(run_dir), "--device", device])
     seconds = time.perf_counter() - t0
     again = json.loads((run_dir / "results.json").read_text())
     assert arc == rc and json.loads(alines[-1]) == {
         "valid": line["valid"]}, (name, arc, alines)
     assert fields(again) == want, (name, again, want)
-    emit({"phase": "test_recheck", "name": name, "device": "cpu",
+    emit({"phase": "test_recheck", "name": name, "device": device,
           "seconds": seconds})
     return seconds
 
@@ -2866,6 +2883,45 @@ def stream_fields(res: dict, wide: set) -> dict:
     return out
 
 
+# (g)'s host witness: `analyze --device cpu` of every G_HOST_EVERY-th of
+# its keys (sorted) and its first G_HOST_WIDE wide keys, beside its whole
+# re-check by `analyze` on the card (all of (g) on the host takes 60-160
+# s of a host CPU).
+G_HOST_EVERY, G_HOST_WIDE = 8, 2
+
+
+def key_sample(res: dict, wide: set) -> set:
+    """(g)'s host witness keys (results.json's key strings)."""
+    keys = sorted(res["indep"]["results"],
+                  key=lambda k: (len(k), k))
+    return set(keys[G_HOST_EVERY - 1::G_HOST_EVERY]) \
+        | set(sorted(wide, key=lambda k: (len(k), k))[:G_HOST_WIDE])
+
+
+def sample_run(run_dir: Path, dest: Path, keys: set) -> Path:
+    """A run directory with run_dir's test.json and the lines of its
+    history.jsonl that belong to `keys`, in order (completions follow
+    their process's pending invocation, as split_by_key routes them)."""
+    dest.mkdir()
+    shutil.copy(run_dir / "test.json", dest / "test.json")
+    key_of: dict = {}
+    kept = []
+    for line in (run_dir / "history.jsonl").read_text().splitlines():
+        if not line.strip():
+            continue
+        op = json.loads(line)
+        if op["process"] == "nemesis":
+            continue
+        if op["type"] == "invoke":
+            key = key_of[op["process"]] = str(op["value"][0])
+        else:
+            key = key_of.pop(op["process"], None)
+        if key in keys:
+            kept.append(line)
+    (dest / "history.jsonl").write_text("\n".join(kept) + "\n")
+    return dest
+
+
 def stream_long(dev) -> dict:
     """(s1): the 100k-op history and its late mutant through an unkeyed
     StreamSession; the fields of the valid one equal Linearizable's
@@ -3081,12 +3137,359 @@ def stream_run(root: Path, name: str, flags: list[str], want_rc: int, dev,
     return rc, line, res, run_dir, row
 
 
+# Phase `serve`: `cli serve --check` as a subprocess on the card, at the
+# defaults (coalesce 10 ms, batch 64), under (v1) 8 tenants on 8 threads,
+# each POSTing 128 histories of 150 ops (cas-register, 10 processes,
+# values 0-4: BASELINE.json configs[0] in the shape of the configs[4]
+# corpus), every 16th a mutant, waiting for each verdict; (v2) one 10k-op
+# history (configs[3], phase single's) submitted without waiting and
+# polled; (v3) a streaming session fed that history in 1,000-op POSTs and
+# a keyed session of 10 keys x 1,000 ops (configs[2], phase
+# independent's), in 1,000-op POSTs. (v1)'s verdicts are held against
+# the plain version of the sweep on the card (all 1,024) and against
+# check_corpus on the host (every SERVE_HOST_EVERY-th history: the 64
+# mutants; the plain version over all 1,024 takes minutes on a host CPU).
+SERVE_TENANTS, SERVE_PER_TENANT, SERVE_OPS = 8, 128, 150
+SERVE_HOST_EVERY = 16
+SERVE_MUTANT_EVERY, SERVE_FEED_OPS = 16, 1_000
+SERVE_LONG_OPS, SERVE_KEY_OPS = 10_000, 1_000
+
+
+def serve_call(port: int, path: str, body=None, timeout: float = 600):
+    """(status, JSON or text) of one request to the daemon."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json"} if data else {})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        text = r.read().decode()
+        if r.headers.get_content_type() == "application/json":
+            return r.status, json.loads(text)
+        return r.status, text
+
+
+def start_daemon(store: Path, dev, log_path: Path):
+    """`cli serve --check --port 0` on `dev` as a subprocess: (process,
+    ready line, seconds to the ready line). Raises with the daemon's log
+    when it exits first."""
+    import select
+
+    t0 = time.perf_counter()
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli", "serve",
+         "--check", "--port", "0", "--store", str(store),
+         *(["--device", "cpu"] if dev.type == "cpu" else [])],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=log, text=True)
+    log.close()
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("serve --check gave no ready line:\n"
+                             + log_path.read_text()[-3000:])
+    return proc, json.loads(line), time.perf_counter() - t0
+
+
+def serve_verdict(res: dict) -> tuple:
+    return (res["valid"], int(res.get("dead_step", -1)),
+            int(res["op_count"]))
+
+
+def quantiles(values) -> tuple:
+    """(p50, p99) of `values`, None for none."""
+    xs = sorted(values)
+    if not xs:
+        return None, None
+    return tuple(xs[min(len(xs) - 1, int(p * len(xs)))] for p in (0.5, 0.99))
+
+
+def serve_part(name: str, before: dict, after: dict, rows: dict,
+               latencies, requests: int, wall: float) -> dict:
+    """One part's line: its requests, rate, latency quantiles (the
+    daemon's submit to verdict), batches and launches (deltas of
+    /serve/stats)."""
+    sb, sa = before["scheduler"], after["scheduler"]
+    lb, la = before["launches"], after["launches"]
+    d = {k: la[k] - lb[k] for k in la}
+    batches = sa["batches"] - sb["batches"]
+    done = sa["requests_done"] - sb["requests_done"]
+    p50, p99 = quantiles(latencies)
+    out = {"phase": "serve_part", "part": name, "requests": requests,
+           "wall_s": wall, "requests_per_s": requests / wall,
+           "latency_p50_s": p50, "latency_p99_s": p99,
+           "batches": batches,
+           "batch_fill_avg": (done / batches / sa["max_batch"]
+                              if batches else 0.0),
+           "coalesced_requests": sa["coalesced_requests"]
+           - sb["coalesced_requests"],
+           "failed_requests": sa["failed_requests"]
+           - sb["failed_requests"],
+           "health": sa["health"],
+           "bucket_launches": d["dense_sweep_grouped"],
+           "single_launches": d["dense_sweep"] - d["dense_sweep_grouped"],
+           "chunk_launches": d["dense_sweep_resumable"]
+           + d["dense_sweep_global"], "launches": d, **rows}
+    emit(out)
+    return out
+
+
+def serve_v1_histories():
+    """(v1)'s histories: 128 a tenant, every 16th a mutant."""
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_register_history,
+                                                       mutate_history)
+
+    rng, mrng = random.Random(0x5E7E), random.Random(0x5E7F)
+    hists = [gen_register_history(rng, n_ops=SERVE_OPS, n_procs=10,
+                                  p_info=0.002)
+             for _ in range(SERVE_TENANTS * SERVE_PER_TENANT)]
+    every = SERVE_MUTANT_EVERY
+    hists[every - 1::every] = [mutate_history(mrng, h)
+                               for h in hists[every - 1::every]]
+    return hists
+
+
+def serve_v1(port: int, hists) -> tuple[list, list, float]:
+    """(v1): each tenant's thread POSTs its histories one at a time and
+    waits for each verdict; (verdicts, each request's round trip as its
+    tenant felt it: HTTP, parse and encode included, wall seconds)."""
+    n = len(hists)
+    bodies = [{"tenant": f"tenant-{i % SERVE_TENANTS}", "wait": True,
+               "history": [json.loads(o.to_json()) for o in h]}
+              for i, h in enumerate(hists)]
+    verdicts: list = [None] * n
+    roundtrips: list = [None] * n
+
+    def tenant(t):
+        for i in range(t, n, SERVE_TENANTS):
+            t1 = time.perf_counter()
+            status, verdicts[i] = serve_call(port, "/check", bodies[i])
+            roundtrips[i] = time.perf_counter() - t1
+            assert status == 200, (i, status)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_TENANTS) as pool:
+        list(pool.map(tenant, range(SERVE_TENANTS)))
+    return verdicts, roundtrips, time.perf_counter() - t0
+
+
+def serve_v2(port: int, h) -> tuple[dict, float]:
+    """(v2): one history submitted without waiting, then polled."""
+    ops = [json.loads(o.to_json()) for o in h]
+    t0 = time.perf_counter()
+    status, body = serve_call(port, "/check", {"tenant": "long",
+                                               "wait": False,
+                                               "history": ops})
+    assert status == 202 and body["pending"], body
+    while True:
+        status, verdict = serve_call(port, f"/check/{body['request_id']}")
+        if status == 200:
+            return verdict, time.perf_counter() - t0
+        time.sleep(0.01)
+
+
+def serve_session(port: int, tenant: str, ops, keyed: bool) -> dict:
+    """(v3): one streaming session fed `ops` in SERVE_FEED_OPS-op POSTs,
+    then closed; its verdict."""
+    status, sess = serve_call(port, "/serve/session",
+                              {"tenant": tenant, "keyed": keyed})
+    assert status == 201, sess
+    feed = [json.loads(o.to_json()) for o in ops]
+    for c in range(0, len(feed), SERVE_FEED_OPS):
+        status, fed = serve_call(port, sess["ops"],
+                                 {"ops": feed[c:c + SERVE_FEED_OPS]})
+        assert status == 200, fed
+    status, verdict = serve_call(port, sess["close"], {})
+    assert status == 200 and verdict["streamed"] is True, verdict
+    return verdict
+
+
+def serve_plain_reference(encs, model, dev) -> list[tuple]:
+    """(valid, dead_step, op_count) of each history by the plain version
+    of the dense sweep (wgl3_kernels.sweep_reference) on `dev`, one batch
+    under the histories' shared geometry."""
+    from jepsen_etcd_demo_tpu_torch.ops import wgl3, wgl3_kernels as wk
+
+    cfg, steps, r_cap = wgl3.batch_steps3(encs, model)
+    ln, tg, cm = wk.prepare_colmask(model, cfg,
+                                    *wgl3.stack_steps3(steps, r_cap, dev))
+    rows = wk.sweep_reference(ln, tg, cm, cfg, wgl3.init_row(model, cfg))
+    return [(r["valid"], int(r["dead_step"]), int(r["op_count"]))
+            for r in wgl3.assemble_batch_results(
+                wgl3.unpack_np(rows.cpu().numpy()), steps, cfg)]
+
+
+def phase_serve(dev) -> dict:
+    """`serve --check` on the card under (v1)-(v3); see SERVE_TENANTS.
+    Every verdict is held against this process's own check of the same
+    history, made after the traffic: (v1) the plain version of the sweep
+    on the card for all, check_corpus on the host for every
+    SERVE_HOST_EVERY-th; (v2) and (v3) the post-hoc Linearizable on the
+    card, whose kernels phases single and long hold against their plain
+    versions. Returns the daemon's launches by kernel record."""
+    from jepsen_etcd_demo_tpu_torch.checkers import (IndependentChecker,
+                                                     Linearizable)
+    from jepsen_etcd_demo_tpu_torch.sched import check_corpus
+    from jepsen_etcd_demo_tpu_torch.utils.fuzz import (gen_register_history,
+                                                       interleave_keyed)
+
+    hists = serve_v1_histories()
+    long_h = gen_register_history(random.Random(0x10C0 + 10_000),
+                                  n_ops=SERVE_LONG_OPS, n_procs=10,
+                                  p_info=0.0005)
+    rng = random.Random(0x1D)
+    per_key = [gen_register_history(rng, n_ops=SERVE_KEY_OPS, n_procs=10,
+                                    p_info=0.002) for _ in range(10)]
+    per_key[3] = invalid_mutant(per_key[3], 0x1D3)
+    keyed = interleave_keyed(per_key)
+    parts, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "store"
+        proc, ready, start_s = start_daemon(store, dev,
+                                            Path(tmp) / "serve.log")
+        try:
+            port = ready["port"]
+            assert ready["check"] is True and ready["warmed"] is True, ready
+            stats = [serve_call(port, "/serve/stats")[1]]
+
+            verdicts, roundtrips, v1_s = serve_v1(port, hists)
+            stats.append(serve_call(port, "/serve/stats")[1])
+            v2, v2_s = serve_v2(port, long_h)
+            stats.append(serve_call(port, "/serve/stats")[1])
+            t0 = time.perf_counter()
+            sessions = {"stream": serve_session(port, "stream", long_h,
+                                                False),
+                        "stream-keyed": serve_session(port, "stream-keyed",
+                                                      keyed, True)}
+            v3_s = time.perf_counter() - t0
+            stats.append(serve_call(port, "/serve/stats")[1])
+            healthz = serve_call(port, "/healthz")[1]
+            want_runs = len(verdicts) + 1 + len(sessions)
+            deadline = time.monotonic() + 120
+            while len(list((store / "serve").iterdir())) < want_runs \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            runs = len(list((store / "serve").iterdir()))
+            index = serve_call(port, "/")[1]
+            metrics = serve_call(port, "/metrics")[1]
+        except BaseException:
+            print(f"serve --check exit code {proc.poll()}; its log:\n"
+                  + (Path(tmp) / "serve.log").read_text()[-4000:],
+                  file=sys.stderr, flush=True)
+            raise
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    # (v1) against the plain version on the card, and a share against
+    # check_corpus on the host.
+    lin_cpu = Linearizable(device="cpu")
+    encs = [lin_cpu.encode(h) for h in hists]
+    t0 = time.perf_counter()
+    plain = serve_plain_reference(encs, lin_cpu.model, dev)
+    rows["v1_plain_s"] = time.perf_counter() - t0
+    host_idx = list(range(SERVE_HOST_EVERY - 1, len(encs), SERVE_HOST_EVERY))
+    t0 = time.perf_counter()
+    host, _k, _st = check_corpus([encs[i] for i in host_idx], device="cpu")
+    rows["v1_host_s"] = time.perf_counter() - t0
+    rows["v1_host_histories"] = len(host_idx)
+    for i, (v, want) in enumerate(zip(verdicts, plain)):
+        assert v["route"] == "torch", (i, v)
+        assert serve_verdict(v) == want, (i, v, want)
+    for i, r in zip(host_idx, host):
+        assert serve_verdict(verdicts[i]) == (
+            r["valid"], int(r["dead_step"]), encs[i].n_ops), (i, r)
+    assert all(i in host_idx for i in range(SERVE_MUTANT_EVERY - 1,
+                                            len(encs), SERVE_MUTANT_EVERY))
+    # (v2) and the unkeyed session against the card's post-hoc check.
+    t0 = time.perf_counter()
+    want = serve_verdict(Linearizable(device=dev).check({}, long_h))
+    rows["v2_reference_s"] = time.perf_counter() - t0
+    assert v2["route"] == "torch" and serve_verdict(v2) == want, (v2, want)
+    one = sessions["stream"]["keys"]["_"]
+    assert serve_verdict(one) == want, (one, want)
+    # The keyed session against the card's post-hoc independent check.
+    t0 = time.perf_counter()
+    got = IndependentChecker(Linearizable(device=dev)).check({}, keyed)
+    rows["v3_reference_s"] = time.perf_counter() - t0
+    keys = sessions["stream-keyed"]["keys"]
+    assert set(keys) == set(got["results"]), (keys, got)
+    for k, r in got["results"].items():
+        assert serve_verdict(keys[k])[:2] == (
+            r["valid"], int(r.get("dead_step", -1))), (k, keys[k], r)
+    assert sessions["stream-keyed"]["valid"] is False
+
+    # A key whose geometry grows restarts: its chunk count starts again,
+    # and the stable prefix is swept once more.
+    chunks = sum(s["stream"]["chunks"] for s in sessions.values())
+    restarts = sum(s["stream"]["restarts"] for s in sessions.values())
+    parts["v1"] = serve_part(
+        "v1", stats[0], stats[1],
+        {"invalid": sum(v["valid"] is False for v in verdicts),
+         **dict(zip(("roundtrip_p50_s", "roundtrip_p99_s"),
+                    quantiles(roundtrips))),
+         "plain_reference_s": rows["v1_plain_s"],
+         "host_reference_s": rows["v1_host_s"]},
+        [v["latency_s"] for v in verdicts], len(verdicts), v1_s)
+    parts["v2"] = serve_part("v2", stats[1], stats[2],
+                             {"reference_s": rows["v2_reference_s"]},
+                             [v2["latency_s"]], 1, v2_s)
+    parts["v3"] = serve_part(
+        "v3", stats[2], stats[3],
+        {"sessions": len(sessions), "chunks": chunks, "restarts": restarts,
+         "overlap_ratio": {n: s["stream"]["overlap_ratio"]
+                           for n, s in sessions.items()},
+         "reference_s": rows["v3_reference_s"]}, [], len(sessions), v3_s)
+
+    # The daemon at the end: healthy, no failed batch, every verdict a run
+    # in the store and a row of the index; on a card, coalesced batches on
+    # the grouped route (fewer launches than requests), the lone 10k
+    # request on the single one, every session chunk on the resumable one.
+    sched = stats[3]["scheduler"]
+    assert healthz["status"] == "healthy", healthz
+    assert sched["failed_requests"] == 0 and sched["health"] == "healthy", \
+        sched
+    assert parts["v1"]["coalesced_requests"] > 0, parts["v1"]
+    assert runs == want_runs, (runs, want_runs)
+    assert index.count("<a href='/files/serve/") == want_runs
+    assert "jepsen_tpu_serve_tenant_latency_seconds" in metrics
+    if dev.type == "cuda":
+        assert 0 < parts["v1"]["bucket_launches"] < len(verdicts), \
+            parts["v1"]
+        assert parts["v2"]["single_launches"] >= 1, parts["v2"]
+        assert parts["v3"]["chunk_launches"] >= chunks > 0, parts["v3"]
+    total = {k: sum(p["launches"][k] for p in parts.values())
+             for k in parts["v1"]["launches"]}
+    emit({"phase": "serve", "ok": True, "start_s": start_s,
+          "warmup": healthz["serve"],
+          "requests": sched["requests_done"], "batches": sched["batches"],
+          "batch_fill_avg": sched["batch_fill_avg"],
+          "coalesced_requests": sched["coalesced_requests"],
+          "failed_requests": sched["failed_requests"],
+          "health": healthz["status"],
+          "kernel_cache": sched["kernel_cache"], "launches": total,
+          "store_runs": runs, **rows})
+    return {"wgl3_sweep[corpus]": total["dense_sweep_grouped"],
+            "wgl3_sweep[single]": total["dense_sweep"]
+            - total["dense_sweep_grouped"],
+            "wgl3_sweep[resume]": total["dense_sweep_resumable"],
+            "wgl3_sweep[global]": total["dense_sweep_global"]}
+
+
 def phase_stream(dev, test_rows: dict) -> dict:
     """The streaming check on the card: whole test (g) through `cli test
-    --check-mode stream`, whose `analyze --device cpu` re-check runs in a
-    subprocess beside s1-s3 and whole tests (h)-(j), each of which is
-    re-checked in this process. Returns the stream launches of the
-    resumable sweep's routes."""
+    --check-mode stream`, re-checked post-hoc by `analyze` on the card and,
+    on a fixed sample of its keys (key_sample), by `analyze --device cpu`
+    in a subprocess beside s1-s3 and whole tests (h)-(j), each of which is
+    re-checked by `analyze --device cpu` in this process. Returns the
+    stream launches of the resumable sweep's routes."""
     rows = {}
     with timed_checks(dev) as seconds, \
             tempfile.TemporaryDirectory() as tmp:
@@ -3094,14 +3497,19 @@ def phase_stream(dev, test_rows: dict) -> dict:
             Path(tmp), *STREAM_RUNS[0], dev, seconds)
         wide = wide_keys(res)
         rows["g"]["wide_keys"] = len(wide)
-        want = stream_fields(res, wide)
+        sample = key_sample(res, wide)
+        sample_dir = sample_run(run_dir, Path(tmp) / "g_sample", sample)
         t0 = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
-             "analyze", str(run_dir), "--device", "cpu"],
+             "analyze", str(sample_dir), "--device", "cpu"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
             text=True)
         try:
+            rows["g"]["recheck_s"] = recheck(
+                "g", run_dir, rc, line, stream_fields(res, wide),
+                fields=lambda again: stream_fields(again, wide),
+                device=dev.type)
             s1 = stream_long(dev)
             s2 = stream_lane(dev)
             s3 = stream_tiers(dev)
@@ -3115,13 +3523,17 @@ def phase_stream(dev, test_rows: dict) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        rows["g"]["recheck_s"] = time.perf_counter() - t0
-        again = json.loads((run_dir / "results.json").read_text())
-        assert proc.returncode == rc and json.loads(
-            out.splitlines()[-1]) == {"valid": line["valid"]}, out
-        assert stream_fields(again, wide) == want, (again, want)
-        emit({"phase": "test_recheck", "name": "g", "device": "cpu",
-              "seconds": rows["g"]["recheck_s"], "subprocess": True})
+        rows["g"]["host_witness_s"] = time.perf_counter() - t0
+        # The sample's keys, by the host, equal the streamed verdicts.
+        again = json.loads((sample_dir / "results.json").read_text())
+        want = stream_fields(res, wide)["linear"]
+        assert proc.returncode == 0 and json.loads(
+            out.splitlines()[-1]) == {"valid": True}, out
+        assert stream_fields(again, wide & sample)["linear"] == {
+            k: want[k] for k in sample}, (again, sample)
+        emit({"phase": "test_recheck", "name": "g_sample", "device": "cpu",
+              "keys": len(sample), "wide_keys": len(wide & sample),
+              "seconds": rows["g"]["host_witness_s"], "subprocess": True})
     g = rows["g"]
     emit({"phase": "stream", "ok": True,
           "exit_codes": {n: r["rc"] for n, r in rows.items()},
@@ -3133,6 +3545,7 @@ def phase_stream(dev, test_rows: dict) -> dict:
                 "drain_s": g["stream"]["drain_s"],
                 "overlap_ratio": g["stream"]["overlap_ratio"],
                 "wide_keys": g["wide_keys"],
+                "host_witness_s": g["host_witness_s"],
                 "b_check_s": test_rows.get("b", {}).get("check_s"),
                 "b_op_count": test_rows.get("b", {}).get("op_count")},
           "h_run_seconds": rows["h"]["run_seconds"]})
@@ -3407,6 +3820,7 @@ def main() -> int:
     test_rows: dict = {}
     stream_launches: dict = {}
     cluster_launches: dict = {}
+    serve_launches: dict = {}
     runs = {"peak": lambda: phase_peak(dev, kernels, peak),
             "kernel": lambda: phase_kernel(dev),
             "long_kernel": lambda: phase_long_kernel(dev),
@@ -3425,6 +3839,7 @@ def main() -> int:
             "cli": phase_cli,
             "test": lambda: test_rows.update(phase_test(dev, work / "test")),
             "replay": lambda: phase_replay(dev, kernels, test_rows),
+            "serve": lambda: serve_launches.update(phase_serve(dev)),
             "stream": lambda: stream_launches.update(
                 phase_stream(dev, test_rows)),
             "cluster": lambda: cluster_launches.update(
@@ -3443,6 +3858,8 @@ def main() -> int:
             rec["stream_launches"] = stream_launches[rec["name"]]
         if rec["name"] in cluster_launches:
             rec["cluster_launches"] = cluster_launches[rec["name"]]
+        if rec["name"] in serve_launches:
+            rec["serve_launches"] = serve_launches[rec["name"]]
     print(card, flush=True)
     emit({"kernels": kernels_line(kernels, peak.get("card"))})
     emit({"ok": True, "device": {"platform": "gpu",

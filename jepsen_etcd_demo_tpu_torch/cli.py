@@ -12,6 +12,10 @@
     python -m jepsen_etcd_demo_tpu_torch.cli corpus <store>
         [--model MODEL] [--reencode] [--no-encode-cache]
         [--sweep-mode auto|dense|sparse] [--device cuda|cpu]
+    python -m jepsen_etcd_demo_tpu_torch.cli serve [--port N] [--host H]
+        [--store DIR] [--check [--model MODEL] [--coalesce-ms MS]
+        [--max-batch N] [--max-inflight N] [--ready-file F]
+        [--device cuda|cpu]]
 
 `test` runs a whole Jepsen test, as the JAX package's `test` does (the
 reference's `lein run test -w register`, src/jepsen/etcdemo.clj:146-199):
@@ -62,6 +66,18 @@ model, and prints the JAX verb's JSON ({"valid", "runs", "keys",
 "padding_waste", "cache_hit_rate", "sweep_steps_sparse",
 "sweep_steps_dense", "configs_pruned", "sparse_overflow_rounds"}); it
 exits 0 iff every history is valid (cmd_corpus).
+
+`serve` serves the store over HTTP: the run index, each run's files,
+/metrics and /healthz (web/server.py). With --check it is the checking
+daemon (serve/): tenants POST histories to /check and stream ops through
+/serve/session; the coalescing scheduler checks them on --device (cuda by
+default) in shared bucketed launches, and every verdict lands in the
+store as a run under <store>/serve/. Before it binds, it builds every
+kernel library the path launches and makes one warm check on the device
+(JEPSEN_TPU_NO_WARMUP=1 skips the check, never the build); a failure
+there exits 1 before the ready line. Bound, it prints one JSON line,
+{"serving", "port", "store", "check", "warmed"} (--port 0 picks a free
+port), also written to --ready-file.
 """
 
 from __future__ import annotations
@@ -267,6 +283,95 @@ def cmd_analyze(args) -> int:
         run.write_results(result)
     print(json.dumps({"valid": result.get("valid")}), flush=True)
     return 0 if result.get("valid") is True else 1
+
+
+# -- serve ---------------------------------------------------------------
+
+# The kernel libraries `serve --check` launches: the dense sweep's
+# (csrc/wgl3_sweep.cu: the single, grouped, resumable and global routes)
+# and the sparse work-list sweep's (csrc/wgl3_sparse.cu).
+SERVE_LIBS = ("wgl3_sweep", "wgl3_sparse")
+NO_WARMUP_ENV = "JEPSEN_TPU_NO_WARMUP"
+
+
+def serve_warmup(device, model_name: str) -> dict | None:
+    """Before `serve --check` binds: build every library the path
+    launches (on a card), then check four small histories, two of them
+    mutants, through check_corpus on `device` and hold the verdicts
+    against the host oracle. Raises on a failed build, launch or
+    disagreement. Returns the record /healthz and the ready line report,
+    or None when JEPSEN_TPU_NO_WARMUP skipped the check (never the
+    build)."""
+    import os
+    import random
+    import time
+
+    from .checkers import Linearizable
+    from .checkers.oracle import check_events_oracle
+    from .ops import build
+    from .ops import wgl3_kernels as wk
+    from .sched import check_corpus
+    from .utils.fuzz import gen_register_history, mutate_history
+
+    t0 = time.perf_counter()
+    families = list(SERVE_LIBS) if device.type == "cuda" else []
+    if families:
+        build.load_all(families)
+    build_s = time.perf_counter() - t0
+    if os.environ.get(NO_WARMUP_ENV):
+        return None
+    lin = Linearizable(model=model_name, device=device)
+    rng = random.Random(0)
+    hists = [gen_register_history(rng, n_ops=60, n_procs=4, p_info=0.0)
+             for _ in range(4)]
+    hists[1::2] = [mutate_history(rng, h) for h in hists[1::2]]
+    encs = [lin.encode(h) for h in hists]
+    before = sum(wk.launch_counts().values())
+    results, kernel, _stats = check_corpus(encs, lin.model, device=device)
+    for i, (enc, res) in enumerate(zip(encs, results)):
+        want = check_events_oracle(enc, lin.model)
+        if res["valid"] != want.valid \
+                or int(res["dead_step"]) != want.dead_step(enc):
+            raise RuntimeError(
+                f"warm check {i} on {device}: {kernel} says valid="
+                f"{res['valid']} dead_step={res['dead_step']}, the host "
+                f"oracle valid={want.valid} "
+                f"dead_step={want.dead_step(enc)}")
+    return {"device": str(device), "families": families, "kernel": kernel,
+            "launches": sum(wk.launch_counts().values()) - before,
+            "build_s": round(build_s, 4),
+            "seconds": round(time.perf_counter() - t0, 4)}
+
+
+def cmd_serve(args) -> int:
+    if not args.check:
+        from .web.server import serve
+
+        serve(args.store, host=args.host, port=args.port)
+        return 0
+    from .device import resolve_device
+    from .obs import health
+    from .serve.daemon import serve_check
+
+    try:
+        device = resolve_device(args.device)
+        warm = serve_warmup(device, args.model)
+    except Exception as e:
+        # A card that is missing or fails its build or warm check ends
+        # the command before it binds: never a daemon that sheds every
+        # request to the host.
+        print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    if warm is not None:
+        print(f"WARMUP {json.dumps(warm, sort_keys=True)}", file=sys.stderr,
+              flush=True)
+    # The supervisor's active probe checks on the daemon's device.
+    health.reset_supervisor(health.BackendSupervisor(device=device.type))
+    return serve_check(
+        args.store, host=args.host, port=args.port,
+        default_model=args.model, coalesce_ms=args.coalesce_ms,
+        max_batch=args.max_batch, max_inflight=args.max_inflight,
+        ready_file=args.ready_file, warmup=warm, device=device)
 
 
 # -- corpus --------------------------------------------------------------
@@ -555,6 +660,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "<store>/.encode-cache/")
     _add_sweep_mode_flag(c)
     c.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    s = sub.add_parser("serve", help="serve the results store over http "
+                                     "(run index, /metrics, /healthz); "
+                                     "--check adds the checking daemon")
+    s.add_argument("--port", type=int, default=8080,
+                   help="0 = a free port; with --check the bound port is "
+                        "printed as one JSON line")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--store", default="store", help="results store root")
+    s.add_argument("--check", action="store_true",
+                   help="checking as a service: take histories over HTTP "
+                        "(POST /check, /serve/session) and check them on "
+                        "the coalescing scheduler; verdicts land in the "
+                        "store as runs")
+    s.add_argument("--model", default="cas-register", choices=sorted(REGISTRY),
+                   help="[--check] model of requests that name none")
+    s.add_argument("--coalesce-ms", type=int, default=None, metavar="MS",
+                   help="[--check] linger of the coalescing scheduler "
+                        "(default limits().serve_coalesce_ms)")
+    s.add_argument("--max-batch", type=positive_int, default=None,
+                   help="[--check] requests per coalesced batch (default "
+                        "limits().serve_max_batch)")
+    s.add_argument("--max-inflight", type=positive_int, default=None,
+                   help="[--check] admitted, unfinished requests per "
+                        "tenant (default limits().serve_max_inflight)")
+    s.add_argument("--ready-file", default=None,
+                   help="[--check] also write the ready JSON line here")
+    s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="[--check] where the checks run (default cuda; cpu "
+                        "runs the kernels' plain versions)")
     return p
 
 
@@ -565,6 +700,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "test":
         return cmd_test(args)
+    if args.command == "serve":
+        return cmd_serve(args)
     with sweep_mode(args.sweep_mode):
         return (cmd_corpus if args.command == "corpus" else cmd_analyze)(args)
 

@@ -34,7 +34,10 @@ build_log: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: dict[str, object] = {}
-_LOCK = threading.Lock()
+# Guards _LIBS and _LAUNCHERS: the checking daemon binds and loads from its
+# executor thread and its sessions' consumer threads at once. Reentrant,
+# since launcher() loads under it.
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -103,20 +106,24 @@ def launcher(name: str, argtypes, entry: str | None = None):
     int a ctypes.c_int). Calling the result launches the kernel and raises
     RuntimeError with CUDA's message when the launch is refused."""
     entry = entry or f"{name}_launch"
-    if entry not in _LAUNCHERS:
-        lib = load(name)
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
+    bound = _LAUNCHERS.get(entry)
+    if bound is not None:
+        return bound
+    with _LOCK:
+        if entry not in _LAUNCHERS:
+            lib = load(name)
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
 
-        def launch(*args) -> None:
-            rc = fn(*args)
-            if rc != 0:
-                raise RuntimeError(f"{entry} failed: "
-                                   f"{err(rc).decode()} (code {rc})")
+            def launch(*args) -> None:
+                rc = fn(*args)
+                if rc != 0:
+                    raise RuntimeError(f"{entry} failed: "
+                                       f"{err(rc).decode()} (code {rc})")
 
-        _LAUNCHERS[entry] = launch
-    return _LAUNCHERS[entry]
+            _LAUNCHERS[entry] = launch
+        return _LAUNCHERS[entry]

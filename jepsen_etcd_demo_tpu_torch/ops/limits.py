@@ -1,5 +1,6 @@
-"""The kernel limits the dense check, the sort ladder, the elle closure
-and the streaming check read, with their defaults (the JAX package's).
+"""The kernel limits the dense check, the sort ladder, the elle closure,
+the streaming check and the checking daemon read, with their defaults
+(the JAX package's).
 
 A frozen dataclass and nothing more: no environment overrides and no
 tuned profiles. ``set_limits`` swaps the active instance (tests use it to
@@ -108,6 +109,19 @@ class KernelLimits:
     # fail-fast lag is at most stream_max_lag_chunks * stream_flush_ops
     # return steps (1..64).
     stream_max_lag_chunks: int = 4
+
+    # -- the checking daemon (serve/) --
+    # Max-linger of the coalescing scheduler (serve/scheduler.py): after
+    # the first pending request arrives, the dispatcher waits up to this
+    # many milliseconds for more to join the same bucketed launches
+    # (0..1000; 0 dispatches what is queued at once).
+    serve_coalesce_ms: int = 10
+    # Most requests one coalesced batch carries (1..4096); the batch still
+    # splits into the scheduler's step buckets downstream.
+    serve_max_batch: int = 64
+    # Per-tenant bound of admitted, unfinished requests (1..4096): past it
+    # a submission is refused with HTTP 429 until verdicts drain.
+    serve_max_inflight: int = 256
 
 
 _ACTIVE = KernelLimits()

@@ -29,6 +29,7 @@ the carry a wrapper returns.
 from __future__ import annotations
 
 import ctypes
+import threading
 import time
 from functools import partial
 from typing import Sequence
@@ -75,9 +76,28 @@ _ARGTYPES = {
 SLOT_TABLES = {None: 0, "registers": 1, "ring": 2}
 
 
+_launches_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launches_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def launch_counts() -> dict:
+    """A copy of `launches`, read under its lock."""
+    with _launches_lock:
+        return dict(launches)
+
+
+def _count(*names: str) -> None:
+    """Add one launch to each of `names`: under a lock, since the checking
+    daemon launches from its executor thread and its sessions' consumer
+    threads at once."""
+    with _launches_lock:
+        for name in names:
+            launches[name] += 1
 
 
 def prepare_colmask(model: Model, cfg: wgl3.DenseConfig,
@@ -268,9 +288,7 @@ def dense_sweep(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
         _launch_sweep(slot_table, ln.data_ptr(), tg.data_ptr(),
                       cm.data_ptr(), out.data_ptr(), None, None, B, R,
                       cfg.n_states, cfg.k_slots, row0, _stream(cm))
-    launches["dense_sweep"] += 1
-    if grouped:
-        launches["dense_sweep_grouped"] += 1
+    _count("dense_sweep", *(("dense_sweep_grouped",) if grouped else ()))
     return out
 
 
@@ -296,7 +314,7 @@ def dense_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
         _launch_sweep(slot_table, ln.data_ptr(), tg.data_ptr(),
                       cm.data_ptr(), None, T.data_ptr(), meta.data_ptr(), B,
                       R, cfg.n_states, cfg.k_slots, 0, _stream(cm))
-    launches["dense_sweep_resumable"] += 1
+    _count("dense_sweep_resumable")
     return T, meta
 
 
@@ -324,7 +342,7 @@ def dense_sweep_global(ln: torch.Tensor, tg: torch.Tensor, cm: torch.Tensor,
                 cm.data_ptr(), T.data_ptr(), meta.data_ptr(),
                 flags.data_ptr(), tg.shape[1], cfg.n_states, cfg.k_slots,
                 _stream(cm))
-    launches["dense_sweep_global"] += 1
+    _count("dense_sweep_global")
     return T, meta
 
 
@@ -352,7 +370,7 @@ def sparse_sweep_resumable(ln: torch.Tensor, tg: torch.Tensor,
         _launch("wgl3_sparse", ln.data_ptr(), tg.data_ptr(), cm.data_ptr(),
                 T.data_ptr(), meta.data_ptr(), B, R, cfg.n_states,
                 cfg.k_slots, cfg.rounds, thresh_blocks, _stream(cm))
-    launches["sparse_sweep_resumable"] += 1
+    _count("sparse_sweep_resumable")
     return T, meta
 
 

@@ -31,6 +31,7 @@ from ..control.runner import runner_for
 from ..generators.core import (NEMESIS, SECOND, Gen, GenContext, Pending,
                                Phases)
 from ..nemesis.base import Nemesis
+from ..obs import health
 from ..ops.op import INVOKE, Op
 from .history import HistoryRecorder
 
@@ -345,6 +346,8 @@ async def _run_test_inner(test: dict, store) -> dict:
              len(history), run_s)
     checker = test.get("checker")
     opts = {"store_dir": str(store.path)} if store else {}
+    # Backend health (obs/health.py): a finished check is a success.
+    supervisor = health.get_supervisor()
     drain_s = 0.0
     if session is not None:
         # Valid streamed verdicts settle their keys in the checkers;
@@ -356,6 +359,8 @@ async def _run_test_inner(test: dict, store) -> dict:
             opts["stream_results"] = stream_results
     result = (checker.check(test, history, opts)
               if checker is not None else {"valid": True})
+    if checker is not None:
+        supervisor.note_ok(source="runner.check")
     result.setdefault("op_count",
                       sum(1 for o in history if o.type == INVOKE))
     result["run_seconds"] = run_s

@@ -20,14 +20,20 @@ sort tiers, then a ladder each). The scheduler changes how the dense
 majority is padded and launched, never which kernel checks what, so
 results are those of the unbatched path.
 
-The JAX package's sched/engine.py, without its telemetry (spans, the
-scaling ledger, the health supervisor), its mesh sharding
-(lpt_shard_order) and its executor thread (submit_corpus): the port has
-none of these yet, nor a caller of the last.
+Every call reports to the backend health supervisor (obs/health.py): a
+failure when the read-back raises, a success after it (the active probe
+is the checking daemon's, not this hot path's). `submit_corpus` runs calls on one process-wide worker
+thread, so concurrent submitters (the serve daemon's dispatch thread,
+tests) never race their launches.
+
+The JAX package's sched/engine.py, without its spans and scaling ledger
+and its mesh sharding (lpt_shard_order): the port has none of these yet.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
@@ -38,6 +44,7 @@ from ..ops import wgl3
 from ..ops import wgl3_kernels as wk
 from ..ops.encode import (EV_RETURN, ReturnSteps, encode_return_steps,
                           reslot_events)
+from ..obs import health
 from ..ops.limits import limits
 
 
@@ -92,21 +99,34 @@ def launch_bucket(model, cfg: wgl3.DenseConfig,
 # (ops/build.py), so here it counts repeated shapes only.
 _seen_shapes: set[tuple] = set()
 shape_counts = {"hits": 0, "misses": 0}
+_shapes_lock = threading.Lock()
 
 
 def _note_shape(shape: tuple) -> None:
-    if shape in _seen_shapes:
-        shape_counts["hits"] += 1
-    else:
-        _seen_shapes.add(shape)
-        shape_counts["misses"] += 1
+    with _shapes_lock:
+        if shape in _seen_shapes:
+            shape_counts["hits"] += 1
+        else:
+            _seen_shapes.add(shape)
+            shape_counts["misses"] += 1
 
 
 def shape_hit_rate() -> float:
     """Launches whose shape was seen before, over all bucket launches of
     this process (0.0 before the first)."""
-    n = shape_counts["hits"] + shape_counts["misses"]
-    return shape_counts["hits"] / n if n else 0.0
+    return shape_stats()["hit_rate"]
+
+
+def shape_stats() -> dict:
+    """The launch-shape counts in the JAX kernel cache's stats() keys:
+    hits + misses is the bucket launches of this process, `entries` the
+    distinct shapes."""
+    with _shapes_lock:
+        hits, misses = shape_counts["hits"], shape_counts["misses"]
+        n = hits + misses
+        return {"hits": hits, "misses": misses,
+                "entries": len(_seen_shapes),
+                "hit_rate": hits / n if n else 0.0}
 
 
 class _Stats:
@@ -259,9 +279,18 @@ def _check_dense(encs, dense_idx, model, cfg: wgl3.DenseConfig,
             kernels.add(label)
     if not launched:
         return
-    # One read back of every launch's rows, after the last launch.
+    # One read back of every launch's rows, after the last launch: where
+    # a failed launch or a lost card surfaces, so the supervisor hears of
+    # it before it propagates.
     order = [i for part, _rows in launched for i in part]
-    host = torch.cat([rows for _part, rows in launched]).cpu().numpy()
+    supervisor = health.get_supervisor()
+    try:
+        host = torch.cat([rows for _part, rows in launched]).cpu().numpy()
+    except Exception as e:
+        supervisor.note_failure(f"{type(e).__name__}: {e}",
+                                source="sched.dispatch")
+        raise
+    supervisor.note_ok(source="sched.dispatch")
     for i, one in zip(order, wgl3.assemble_batch_results(
             wgl3.unpack_np(host), [steps_of[i] for i in order], cfg)):
         results[i] = one
@@ -291,3 +320,27 @@ def _check_general(encs, general_idx, model, results: list, kernels: set,
         too_long_all.extend(too_long)
     wk.ladder_tail(encs, model, results, kernels, too_long_all,
                    overflow_seeds, dev, time_budget_s)
+
+
+_executor_lock = threading.Lock()
+_executor: ThreadPoolExecutor | None = None
+
+
+def corpus_executor() -> ThreadPoolExecutor:
+    """The process-wide single-worker executor that corpus calls
+    serialize on (created on first use). The card is one serial resource:
+    submitters gain nothing by racing their launches."""
+    global _executor
+    with _executor_lock:
+        if _executor is None:
+            _executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="sched-corpus")
+        return _executor
+
+
+def submit_corpus(encs: Sequence, model=None, f_cap: int = 256,
+                  device=None) -> Future:
+    """check_corpus on corpus_executor(): a Future of the same (results,
+    kernel, stats) tuple, on `device` (None = cuda)."""
+    return corpus_executor().submit(check_corpus, encs, model, f_cap,
+                                    device)

@@ -50,6 +50,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..models.base import Model
+from ..obs import health
 from ..ops import wgl3
 from ..ops import wgl3_kernels as wk
 from ..ops.encode import (EV_INVOKE, EV_RETURN, EncodedHistory, EncodeError,
@@ -222,6 +223,8 @@ class KeyStream:
         self.carry = wk.stream_chunk(self.carry, tabs, act, tgt, self.model,
                                      self.cfg)
         self.dispatch_s += time.monotonic() - t0
+        # A launched chunk is a success for the backend supervisor.
+        health.get_supervisor().note_ok(source="stream.dispatch")
         self.last_flush = t0
         self.steps_done += tgt.shape[0]
         self.real_dispatched += real
@@ -382,9 +385,12 @@ class StreamSession:
             except Exception as e:
                 # A failed build or launch: never a quiet switch to the
                 # plain version; the post-hoc check runs on the device.
+                # The supervisor counts it toward degraded and wedged.
                 self._broken = f"{type(e).__name__}: {e}"
                 log.exception("streaming check failed; the post-hoc check "
                               "takes over")
+                health.get_supervisor().note_failure(
+                    self._broken, source="stream.consumer")
             finally:
                 self._encode_s += time.monotonic() - t0
 

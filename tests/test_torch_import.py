@@ -90,7 +90,18 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.db.debian",
               "jepsen_etcd_demo_tpu_torch.db.minietcd",
               "jepsen_etcd_demo_tpu_torch.clients.etcd",
-              "jepsen_etcd_demo_tpu_torch.nemesis.process_faults"):
+              "jepsen_etcd_demo_tpu_torch.nemesis.process_faults",
+              "jepsen_etcd_demo_tpu_torch.obs",
+              "jepsen_etcd_demo_tpu_torch.obs.metrics",
+              "jepsen_etcd_demo_tpu_torch.obs.export",
+              "jepsen_etcd_demo_tpu_torch.obs.health",
+              "jepsen_etcd_demo_tpu_torch.obs.ledger",
+              "jepsen_etcd_demo_tpu_torch.serve",
+              "jepsen_etcd_demo_tpu_torch.serve.scheduler",
+              "jepsen_etcd_demo_tpu_torch.serve.sessions",
+              "jepsen_etcd_demo_tpu_torch.serve.daemon",
+              "jepsen_etcd_demo_tpu_torch.web",
+              "jepsen_etcd_demo_tpu_torch.web.server"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):
@@ -144,7 +155,7 @@ def test_build_hashes_headers_and_reports_every_failed_source(tmp_path,
 
 
 HARNESS = ("generators", "clients", "db", "control", "nemesis", "runner",
-           "store", "compose")
+           "store", "compose", "obs", "serve", "web")
 
 
 @pytest.mark.parametrize("sub", HARNESS)
