@@ -16,6 +16,12 @@
         [--store DIR] [--check [--model MODEL] [--coalesce-ms MS]
         [--max-batch N] [--max-inflight N] [--ready-file F]
         [--device cuda|cpu]]
+    python -m jepsen_etcd_demo_tpu_torch.cli campaign [--specs N]
+        [--seed N] [--families F1,F2,...] [--bug-rate P] [--live N]
+        [--scale X] [--workers N] [--route direct|serve] [--no-shrink]
+        [--no-bank] [--max-shrink-checks N] [--replay-corpus]
+        [--store DIR] [--sweep-mode auto|dense|sparse]
+        [--device cuda|cpu]
 
 `test` runs a whole Jepsen test, as the JAX package's `test` does (the
 reference's `lein run test -w register`, src/jepsen/etcdemo.clj:146-199):
@@ -78,6 +84,20 @@ kernel library the path launches and makes one warm check on the device
 there exits 1 before the ready line. Bound, it prints one JSON line,
 {"serving", "port", "store", "check", "warmed"} (--port 0 picks a free
 port), also written to --ready-file.
+
+`campaign` is the scenario factory (campaign/): it samples --specs
+deterministic scenarios from --seed over the workload families, runs
+them (sim specs on the virtual-time loop, --live of them against an
+in-process minietcd cluster under its fault planes), checks every key on
+--device through the corpus scheduler (--route direct) or as the serve
+scheduler's campaign tenant (--route serve), dedupes falsifying keys by
+anomaly signature, shrinks one witness a signature by batched ddmin, and
+banks the minimal witnesses under <store>/corpus/. It prints the
+campaign report as one JSON line and exits 0; an unknown family exits 2.
+--replay-corpus checks every banked witness again instead and exits 1
+if one no longer falsifies at its banked dead_step. Without a card and
+without --device cpu it prints "CUDA is not available" on stderr and
+exits 1, having checked nothing.
 """
 
 from __future__ import annotations
@@ -514,6 +534,43 @@ def _cmd_corpus_checked(args, device) -> int:
     return 0 if not invalid else 1
 
 
+# -- campaign ------------------------------------------------------------
+
+def cmd_campaign(args) -> int:
+    """The scenario factory end to end, or (--replay-corpus) the
+    regression lane over the banked corpus, under one metrics capture.
+    The device is resolved first: without it nothing runs."""
+    from . import obs
+    from .campaign import replay_corpus, run_campaign
+    from .device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    families = ([f.strip() for f in args.families.split(",") if f.strip()]
+                if args.families else None)
+    with obs.capture():
+        if args.replay_corpus:
+            report = replay_corpus(args.store, device=device)
+            print(json.dumps(report))
+            return 0 if report["ok"] else 1
+        try:
+            report = run_campaign(
+                n_specs=args.specs, seed=args.seed, families=families,
+                bug_rate=args.bug_rate, live=args.live,
+                scale=args.scale, workers=args.workers,
+                route=args.route, shrink=not args.no_shrink,
+                bank=not args.no_bank, store_root=args.store,
+                max_shrink_checks=args.max_shrink_checks, device=device)
+        except ValueError as e:   # an unknown --families entry
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    print(json.dumps(report.to_dict()))
+    return 0
+
+
 # -- parser --------------------------------------------------------------
 
 # --sweep-mode -> limits().sparse_mode (ops/limits.py).
@@ -690,6 +747,54 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="[--check] where the checks run (default cuda; cpu "
                         "runs the kernels' plain versions)")
+
+    g = sub.add_parser(
+        "campaign",
+        help="the scenario factory: sample N deterministic scenarios, run "
+             "them against in-process clusters, check every key in corpus "
+             "batches, dedupe falsifying runs by anomaly signature, shrink "
+             "one witness a signature by batched ddmin and bank the "
+             "minimal counterexamples under <store>/corpus/")
+    g.add_argument("--specs", type=positive_int, default=256,
+                   help="scenario count (default 256)")
+    g.add_argument("--seed", type=int, default=0,
+                   help="campaign seed: the same seed gives the same specs, "
+                        "verdicts, signatures and minimal witnesses")
+    g.add_argument("--families", default=None,
+                   help="comma-separated workload families (default: "
+                        "register,gset,queue,multiregister)")
+    g.add_argument("--bug-rate", type=float, default=0.25,
+                   help="share of specs carrying a seeded injectable bug "
+                        "(default 0.25)")
+    g.add_argument("--live", type=int, default=0,
+                   help="how many specs run against a live in-process "
+                        "minietcd cluster (real HTTP, stream fail-fast, the "
+                        "member-churn, disk-fault and lease-skew planes; "
+                        "default 0: sim only)")
+    g.add_argument("--scale", type=positive_float, default=1.0,
+                   help="schedule-size multiplier (default 1.0)")
+    g.add_argument("--workers", type=positive_int, default=4,
+                   help="threads running sim scenarios (default 4)")
+    g.add_argument("--route", default="direct", choices=["direct", "serve"],
+                   help="direct: sched.check_corpus (default); serve: every "
+                        "wave to the coalescing scheduler as the "
+                        "'campaign' tenant")
+    g.add_argument("--no-shrink", action="store_true",
+                   help="triage only: no ddmin shrinking")
+    g.add_argument("--no-bank", action="store_true",
+                   help="do not keep the minimal witnesses")
+    g.add_argument("--max-shrink-checks", type=positive_int, default=4096,
+                   help="candidate checks a shrink may spend (default 4096)")
+    g.add_argument("--replay-corpus", action="store_true",
+                   help="run no campaign: check every banked witness under "
+                        "<store>/corpus/ again, one batched launch a model; "
+                        "exit 1 if one no longer falsifies")
+    g.add_argument("--store", default="store",
+                   help="results store root (the bank is <store>/corpus/)")
+    _add_sweep_mode_flag(g)
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the checks run (default cuda; cpu runs the "
+                        "kernels' plain versions)")
     return p
 
 
@@ -702,8 +807,9 @@ def main(argv=None) -> int:
         return cmd_test(args)
     if args.command == "serve":
         return cmd_serve(args)
+    verbs = {"corpus": cmd_corpus, "campaign": cmd_campaign}
     with sweep_mode(args.sweep_mode):
-        return (cmd_corpus if args.command == "corpus" else cmd_analyze)(args)
+        return verbs.get(args.command, cmd_analyze)(args)
 
 
 if __name__ == "__main__":

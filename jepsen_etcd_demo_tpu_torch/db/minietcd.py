@@ -50,6 +50,30 @@ from urllib.parse import parse_qs, urlparse
 VERSION = "2.3.8-minietcd"   # a v2-era version string: probes parse it
 #                              as (2, 3), so the v2 API is on by default
 
+# The scenario factory's persistence fault plane
+# (nemesis/cluster_faults.DiskFaultNemesis). A KeyStore's `fault_mode` is
+# honoured only while this variable is set to a true value, so a stray
+# attribute write cannot bend a production minietcd: the nemesis sets
+# both, for its fault window only.
+FAULT_HOOK_ENV = "JEPSEN_TPU_MINIETCD_FAULT_HOOK"
+FAULT_DISK_FULL = "disk-full"          # acked writes never reach the disk
+FAULT_CORRUPT_WRITE = "corrupt-write"  # the snapshot garbles the last value
+
+
+def fault_hook_enabled() -> bool:
+    return os.environ.get(FAULT_HOOK_ENV, "").lower() \
+        in ("1", "true", "yes", "on")
+
+
+def _garble(value: str) -> str:
+    """On-disk corruption that stays in the op language: a numeric
+    register value goes up by one (never the acked value, still
+    encodable), anything else is reversed."""
+    try:
+        return str(int(value) + 1)
+    except (TypeError, ValueError):
+        return value[::-1] if value else "corrupt"
+
 
 class KeyStore:
     """The single-copy store: key -> (value, modifiedIndex), one global
@@ -63,6 +87,10 @@ class KeyStore:
         self.lock = threading.Lock()
         self.path = (os.path.join(data_dir, "minietcd.json")
                      if data_dir else None)
+        # The fault plane (FAULT_HOOK_ENV): the persistence fault to
+        # inject, and how many writes it has bent so far.
+        self.fault_mode: str | None = None
+        self.faults_injected = 0
         if self.path and os.path.exists(self.path):
             with open(self.path) as f:
                 snap = json.load(f)
@@ -72,12 +100,29 @@ class KeyStore:
     def _persist_locked(self) -> None:
         if not self.path:
             return
+        mode = self.fault_mode if fault_hook_enabled() else None
+        if mode == FAULT_DISK_FULL:
+            # A server that swallows ENOSPC: the write is acked and served
+            # from memory but never reaches the disk, so a restart from
+            # the snapshot loses it.
+            self.faults_injected += 1
+            return
+        data = self.data
+        if mode == FAULT_CORRUPT_WRITE:
+            # The snapshot garbles the most recently modified value on
+            # its way to disk; memory stays right until a restart.
+            data = dict(self.data)
+            latest = max(data, key=lambda k: data[k][1], default=None)
+            if latest is not None:
+                v, idx = data[latest]
+                data[latest] = (_garble(v), idx)
+                self.faults_injected += 1
         # Replaced atomically: a kill -9 (the kill nemesis) leaves either
         # the old snapshot or the new one, never a torn file.
         fd, tmp = tempfile.mkstemp(dir=os.path.dirname(self.path))
         with os.fdopen(fd, "w") as f:
             json.dump({"index": self.index,
-                       "keys": {k: list(v) for k, v in self.data.items()}},
+                       "keys": {k: list(v) for k, v in data.items()}},
                       f)
         os.replace(tmp, self.path)
 

@@ -1,6 +1,7 @@
 """obs: the metrics the checking daemon keeps and serves.
 
-The part of the JAX package's obs/ the serve path reads:
+The part of the JAX package's obs/ the serve path and the scenario
+factory read:
 
   * metrics.py - counters, gauges and histograms (MetricsRegistry)
   * export.py  - their Prometheus text exposition (/metrics)
@@ -9,7 +10,8 @@ The part of the JAX package's obs/ the serve path reads:
   * ledger.py  - the rolling-window SLO gauges of the daemon
   * this module - the capture stack: `get_metrics()` returns the active
                   capture's registry, or a registry that records nothing
-                  outside a capture, so library calls pay one list read
+                  outside a capture, so library calls pay one list read;
+                  and campaign_stats, the campaign.* counters read back
 
 The JAX package's span tracer, per-run artifacts (telemetry.jsonl,
 metrics.json), kernel attribution, scaling ledger and live event bus have
@@ -26,7 +28,7 @@ from __future__ import annotations
 import os
 import threading
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Iterator, Optional
 
 from . import export, health, ledger  # noqa: F401
 from .metrics import MetricsRegistry, read_metrics  # noqa: F401
@@ -106,3 +108,38 @@ def capture() -> Iterator[Capture]:
         with _lock:
             if cap in _stack:
                 _stack.remove(cap)
+
+
+def campaign_stats(metrics: Optional[MetricsRegistry] = None) -> dict:
+    """The scenario factory's counters and gauges (campaign/) from a
+    registry: specs, aborted runs, keys checked and skipped, falsified
+    runs, the shrinker's checks and launches, banked and replayed
+    witnesses, replay failures, and the signature, shrink-ratio and
+    specs/s gauges. Zeros without a registry or a campaign."""
+    out = {"specs": 0, "aborted_runs": 0, "keys_checked": 0,
+           "keys_skipped_hard": 0, "runs_falsified": 0,
+           "shrink_checks": 0, "shrink_launches": 0,
+           "banked": 0, "replayed": 0, "replay_failures": 0,
+           "unique_signatures": 0, "shrink_ratio": 0.0,
+           "specs_per_sec": 0.0}
+    if metrics is None or not metrics.enabled:
+        return out
+    snap = metrics.snapshot()
+
+    def counter_value(key: str) -> int:
+        rec = snap.get(key)
+        return int(rec["value"]) if rec \
+            and rec.get("type") == "counter" else 0
+
+    for field in ("specs", "aborted_runs", "keys_checked",
+                  "keys_skipped_hard", "runs_falsified", "shrink_checks",
+                  "shrink_launches", "banked", "replayed",
+                  "replay_failures"):
+        out[field] = counter_value(f"campaign.{field}")
+    for field, cast in (("unique_signatures", int),
+                        ("shrink_ratio", lambda v: round(float(v), 4)),
+                        ("specs_per_sec", lambda v: round(float(v), 2))):
+        g = snap.get(f"campaign.{field}")
+        if g and g.get("last") is not None:
+            out[field] = cast(g["last"])
+    return out

@@ -249,6 +249,22 @@ async def _teardown_run(test: dict, client_proto: Optional[Client],
     await _teardown_nodes(test, store_dir)
 
 
+async def run_workload(test: dict, recorder: HistoryRecorder,
+                       stop_check=None) -> list[Op]:
+    """The lean path the scenario factory embeds (campaign/engine.py):
+    node, client and nemesis setup -> the generators -> their teardown,
+    without the store, the log download or the check that run_test
+    adds. The caller brings the recorder (a virtual-clock
+    one for deterministic sim runs) and the optional fail-fast
+    `stop_check` (as interpret_generators takes it)."""
+    client_proto, nemesis = await _setup_run(test)
+    try:
+        return await interpret_generators(test, recorder,
+                                          stop_check=stop_check)
+    finally:
+        await _teardown_run(test, client_proto, nemesis)
+
+
 async def _setup_nodes(test: dict):
     db = test.get("db")
     os_setup = test.get("os_setup")

@@ -68,6 +68,13 @@ DEVICE_ROUTE = "torch"
 TENANT_LATENCY_TENANTS = 256
 
 
+# The scenario factory's tenant (campaign/engine.py submits its check
+# waves here under route "serve"): campaign traffic takes its turn in
+# the round-robin drain like any tenant, so a long campaign cannot
+# starve an interactive one.
+CAMPAIGN_TENANT = "campaign"
+
+
 class Rejected(Exception):
     """A submission the scheduler refused. ``status`` is the HTTP code the
     daemon answers (429 admission bound, 503 wedged, 409 closed session);
@@ -198,6 +205,48 @@ class CoalescingScheduler:
         m.counter("serve.requests").add(1)
         m.gauge("serve.queue_depth").set(depth)
         return req
+
+    def submit_many(self, tenant: str, encs,
+                    model_name: str = "cas-register") -> list[ServeRequest]:
+        """Admit a wave of one tenant's requests under one lock (the
+        campaign's check waves: many small histories, where a lock and a
+        wakeup a request would dominate). All or nothing against the
+        admission bound: a wave that would pass `max_inflight()` is
+        Rejected whole, so the caller chunks by it and drains between
+        waves."""
+        m = obs.get_metrics()
+        sup = health.get_supervisor()
+        if sup.snapshot()["state"] == health.WEDGED:
+            m.counter("serve.rejected_wedged").add(len(encs))
+            raise Rejected(
+                "backend wedged; shedding new work "
+                f"(retry after {RETRY_AFTER_S}s)", 503,
+                retry_after_s=RETRY_AFTER_S)
+        tenant = str(tenant)
+        reqs = [ServeRequest(tenant=tenant, model_name=model_name, enc=e)
+                for e in encs]
+        with self._lock:
+            if self._inflight.get(tenant, 0) + len(reqs) \
+                    > self.max_inflight():
+                m.counter("serve.rejected_inflight").add(len(reqs))
+                raise Rejected(
+                    f"tenant {tenant!r} wave of {len(reqs)} would "
+                    f"overrun the in-flight bound "
+                    f"({self.max_inflight()}); chunk and drain", 429,
+                    retry_after_s=RETRY_AFTER_INFLIGHT_S)
+            q = self._queues.get(tenant)
+            if q is None:
+                q = self._queues[tenant] = deque()
+                self._rotation.append(tenant)
+            q.extend(reqs)
+            self._inflight[tenant] = \
+                self._inflight.get(tenant, 0) + len(reqs)
+            self._pending += len(reqs)
+            depth = self._pending
+            self._lock.notify_all()
+        m.counter("serve.requests").add(len(reqs))
+        m.gauge("serve.queue_depth").set(depth)
+        return reqs
 
     def model_for(self, name: str):
         """The Model instance of a model name, one per name: racing

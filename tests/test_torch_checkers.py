@@ -330,15 +330,18 @@ def test_cli_module_entry_point(tmp_path):
     r = subprocess.run([sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
                         "analyze", str(p), "--device", "cpu"], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
-    assert r.returncode == 1, r.stderr[-2000:]
-    assert json.loads(r.stdout) == {"valid": False}
+    said = f"stdout: {r.stdout[-2000:]!r}\nstderr: {r.stderr[-2000:]!r}"
+    assert r.returncode == 1, said
+    assert json.loads(r.stdout) == {"valid": False}, said
     r = subprocess.run([sys.executable, "-m", "jepsen_etcd_demo_tpu_torch.cli",
                         "analyze", str(p)], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
+    said = f"stdout: {r.stdout[-2000:]!r}\nstderr: {r.stderr[-2000:]!r}"
     if not torch.cuda.is_available():
         # Default device is cuda: without a card the check cannot run,
         # and it does not fall back to the host.
-        assert r.returncode == 1
-        assert json.loads(r.stdout) == {"valid": "unknown"}
-        assert "CUDA is not available" in r.stderr
-    assert sum(wk.launches.values()) == 0 or torch.cuda.is_available()
+        assert r.returncode == 1, said
+        assert json.loads(r.stdout) == {"valid": "unknown"}, said
+        assert "CUDA is not available" in r.stderr, said
+    assert sum(wk.launches.values()) == 0 or torch.cuda.is_available(), \
+        dict(wk.launches)

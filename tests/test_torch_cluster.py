@@ -306,6 +306,21 @@ def test_kill_and_restart_of_a_spawned_minietcd(tmp_path):
     assert open_fds() <= fds
 
 
+def test_free_ports_are_distinct_and_below_the_ephemeral_range():
+    """Runs side by side take their members' ports from free_port before
+    the members bind them: every port it hands out is new, bindable, and
+    below the range the kernel gives to bind(("", 0)) and to outgoing
+    connections, so no other socket can take it meanwhile."""
+    low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text()
+              .split()[0])
+    ports = [free_port() for _ in range(64)]
+    assert len(set(ports)) == len(ports)
+    assert all(1024 <= p < low for p in ports)
+    for p in ports[:8]:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))
+
+
 def test_no_socket_outlives_its_client(tmp_path):
     """Many clients, each closed after a call, on a live server (its own
     process) and on a refusing port: this process's descriptor count

@@ -101,7 +101,15 @@ def test_module_list_covers_the_slice():
               "jepsen_etcd_demo_tpu_torch.serve.sessions",
               "jepsen_etcd_demo_tpu_torch.serve.daemon",
               "jepsen_etcd_demo_tpu_torch.web",
-              "jepsen_etcd_demo_tpu_torch.web.server"):
+              "jepsen_etcd_demo_tpu_torch.web.server",
+              "jepsen_etcd_demo_tpu_torch.campaign",
+              "jepsen_etcd_demo_tpu_torch.campaign.specs",
+              "jepsen_etcd_demo_tpu_torch.campaign.vclock",
+              "jepsen_etcd_demo_tpu_torch.campaign.triage",
+              "jepsen_etcd_demo_tpu_torch.campaign.bank",
+              "jepsen_etcd_demo_tpu_torch.campaign.cluster",
+              "jepsen_etcd_demo_tpu_torch.campaign.engine",
+              "jepsen_etcd_demo_tpu_torch.nemesis.cluster_faults"):
         assert m in PORT_MODULES
     for src in ("wgl3_sweep.cu", "wgl3_sparse.cu", "wgl3_table.cuh",
                 "elle_accumulate.cu", "alu_peak.cu"):

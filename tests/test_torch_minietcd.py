@@ -224,3 +224,60 @@ def test_port_map_and_topology_helpers(raw, monkeypatch):
     nodes = ["n1", "n2", "other"]
     assert petcd.initial_cluster(nodes) == jetcd.initial_cluster(nodes)
     assert petcd.node_url("n", 1) == jetcd.node_url("n", 1)
+
+
+@pytest.mark.parametrize("mode", ["disk-full", "corrupt-write"])
+def test_fault_plane_snapshots_alike(tmp_path, monkeypatch, mode):
+    """The env-gated persistence fault bends both servers' snapshots the
+    same way, and neither without the gate."""
+    monkeypatch.setenv(jmini.FAULT_HOOK_ENV, "1")
+    assert pmini.FAULT_HOOK_ENV == jmini.FAULT_HOOK_ENV
+    snaps = {}
+    for name, mod in MODS.items():
+        d = tmp_path / name
+        d.mkdir()
+        st = mod.KeyStore(str(d))
+        st.put("a", "1", None, None)
+        st.fault_mode = mode
+        st.put("b", "7", None, None)
+        st.put("a", "2", None, None)
+        snaps[name] = ((d / "minietcd.json").read_text(), st.faults_injected,
+                       mod.KeyStore(str(d)).data)
+    assert snaps["port"] == snaps["jax"]
+    assert snaps["port"][1] == 2
+
+
+def test_fault_plane_starts_without_torch(tmp_path):
+    """minietcd, its fault plane included, runs on the standard library:
+    with torch blocked it serves, bends a snapshot and starts as a
+    daemon's process would."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    code = (
+        "import os, sys\n"
+        "sys.modules['torch'] = None\n"
+        "from jepsen_etcd_demo_tpu_torch.db import minietcd as m\n"
+        "os.environ[m.FAULT_HOOK_ENV] = '1'\n"
+        f"st = m.KeyStore({str(tmp_path)!r})\n"
+        "st.put('k', '1', None, None)\n"
+        "st.fault_mode = m.FAULT_DISK_FULL\n"
+        "st.put('k', '2', None, None)\n"
+        f"again = m.KeyStore({str(tmp_path)!r})\n"
+        "assert again.data['k'][0] == '1' and st.faults_injected == 1\n"
+        "assert not any(n == 'torch' or n.startswith('torch.')\n"
+        "               for n, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    p = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr[-3000:]
+    p = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, sys; sys.modules['torch'] = None; "
+         "sys.argv = ['minietcd', '--version']; "
+         "runpy.run_module('jepsen_etcd_demo_tpu_torch.db.minietcd', "
+         "run_name='__main__')"],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0 and "minietcd" in p.stdout, p.stderr[-3000:]

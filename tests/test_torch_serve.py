@@ -860,7 +860,9 @@ def test_concurrent_sessions_and_requests_equal_sequential(
 
 def test_launch_counts_lose_no_update_across_threads():
     """The launch counters are bumped from the executor thread and the
-    sessions' consumer threads at once: none is lost."""
+    sessions' consumer threads at once: none is lost. The made-up counts
+    are taken back afterwards: the counters are process-wide, and a later
+    test in this worker reads them."""
     from jepsen_etcd_demo_tpu_torch.ops import wgl3_kernels as wk
 
     before = wk.launch_counts()
@@ -875,8 +877,10 @@ def test_launch_counts_lose_no_update_across_threads():
         for t in threads:
             t.join(60)
         assert not any(t.is_alive() for t in threads)
+        after = wk.launch_counts()
     finally:
         sys.setswitchinterval(prev)
-    after = wk.launch_counts()
+        with wk._launches_lock:
+            wk.launches.update(before)
     for name in ("dense_sweep", "dense_sweep_grouped"):
         assert after[name] - before[name] == 16 * 2000

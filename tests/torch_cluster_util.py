@@ -8,6 +8,7 @@ torch nor JAX."""
 from __future__ import annotations
 
 import os
+import random
 import socket
 import sys
 from pathlib import Path
@@ -73,14 +74,52 @@ exit 100
 }
 
 
+# The ports free_port has handed out in this process: never twice.
+_HANDED_OUT: set[int] = set()
+
+
+def _ephemeral_low() -> int:
+    """The low end of the kernel's ephemeral port range (32768 by
+    default), from which bind(("", 0)) and an outgoing connect take
+    their ports."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port() -> int:
-    """A port nothing listens on now. etcd's argv names its ports, so a
-    run's are chosen before its members start; a member that then finds
-    its port taken fails to bind and never logs minietcd's "serving
-    client requests" line, which the runs check for."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port nothing listens on now, distinct from every port this
+    process handed out before. etcd's argv names its ports, so a run's
+    are chosen before its members start, seconds before they bind. The
+    port is drawn below the kernel's ephemeral range, so no bind to port
+    0 and no outgoing connection of another process can take it in that
+    gap; runs side by side (chip_smoke.py's phase `cluster`) each get
+    their own. A member that finds its port taken fails to bind and
+    never logs minietcd's "serving client requests" line, which the runs
+    check for."""
+    low = _ephemeral_low()
+    if low > 11024:
+        rng = random.SystemRandom()
+        for _ in range(1000):
+            port = rng.randrange(10000, low)
+            if port in _HANDED_OUT:
+                continue
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+            _HANDED_OUT.add(port)
+            return port
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _HANDED_OUT:
+            _HANDED_OUT.add(port)
+            return port
 
 
 def cluster_env(root: Path, port_map: str | None = None,
